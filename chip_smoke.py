@@ -5,23 +5,38 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. device   the card's name and power limit (nvidia-smi), torch / CUDA
-  2. build    nvcc builds kernels A, B, C from ditto_tts_tpu_torch/csrc/
-  3. kernels  each kernel against its plain PyTorch version at the serving
-              path's shapes, bf16 and fp32, with the stated tolerance;
+  2. build    nvcc builds kernels A, B, C, D from ditto_tts_tpu_torch/csrc/
+              (one nvcc per source, all at once)
+  3. kernels  each kernel against its plain PyTorch version at the paths'
+              shapes, bf16 and fp32, with the stated tolerance (A; B, also
+              as the whole-batch conv #4 and its B=1 gate; C, also with the
+              residual epilogue at widths 48 / 24; D in both modes, on
+              [B, C, T] and [B, T, C], with a ragged T and T < 8);
               kernel / plain / library times (CUDA events) and the bound
   4. serving  the full-width chain of bench.py (12-layer 768-wide DiT,
               50 DDPM steps, EnCodec 1.5 kbps, BigVGAN v2 24 kHz) through
               build_synthesize_pipelined: the 10 s bucket at B=4 (warm-up,
               three timed requests with different seeds, a repeat of one
               seed that must be bitwise equal) and the 20 s bucket at B=4;
-              launch counts of every kernel are read over this phase
+              launches of every kernel, read over this phase, must be
+              exactly those of the default path (per request A 1200, B 90,
+              C 54, D 0)
   5. parity   full width, 1 s prompt, B=1, fp32 with TF32 off, all 50
               steps (respaced to 4 steps, the first step's beta rounds to
               1.0 in fp32 and the update divides by zero, in JAX too):
               build_synthesize_recorded with the same numpy noise on the
               card and on the CPU (plain versions); refined latents, VQ
               index agreement, and the CPU's indices decoded on the card
-  6. a {"kernels": [...]} line, then the card line, then the last line
+  6. the vocoder under aa_impl="fused_pallas": the 10 s bucket at B=4
+     (warm-up and two timed requests; per request D 108, C 0), the vocoder
+     stage on phase 4's mel under both settings in turns, and the
+     full-width vocoder at B=1, fp32, on the card against the CPU (max
+     |err| <= 1e-3)
+  7. the vocoder under aa_impl="fused_ncl" on BigVGAN's last two stages
+     (widths 48 and 24 from 60032 mel frames, B=4; C 36 launches, half of
+     them with the residual), card against CPU at B=1, and the JAX error
+     at full width
+  8. a {"kernels": [...]} line, then the card line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
 Weights are random (numpy seed 0, init_generator_params); nothing is
@@ -83,6 +98,23 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+# launches of each kernel per 10 s / B=4 request on each path
+DEFAULT_PATH = {"attention": 1200, "conv1d": 90, "act_conv": 54, "snake": 0}
+FUSED_PALLAS_PATH = {"attention": 1200, "conv1d": 90 + 54, "act_conv": 0,
+                     "snake": 108}
+# BigVGAN's last two stages under aa_impl="fused_ncl", one forward
+FUSED_NCL_PATH = {"attention": 0, "conv1d": 4, "act_conv": 36, "snake": 0}
+
+
+def check_launches(path: str, launches: dict, per_request: dict, n: int):
+    """Every kernel launched exactly as often as the path runs it (n
+    requests): a kernel of the path that never ran fails, and so does one
+    that ran where the path has none."""
+    want = {k: v * n for k, v in per_request.items()}
+    if launches != want:
+        fail(f"{path}: launches {launches}, expected {want}")
+
+
 class Checks:
     """Kernel-vs-plain comparisons; a case outside tolerance fails the run
     at the end of the phase, after every case has printed."""
@@ -115,18 +147,33 @@ def kernel_phase(torch, rec):
                                                   aa_snake_conv1d_plain)
     from ditto_tts_tpu_torch.ops.attention import (attention_cuda,
                                                    attention_plain)
-    from ditto_tts_tpu_torch.ops.conv import conv1d_cuda, conv1d_plain
+    from ditto_tts_tpu_torch.ops.conv import (conv1d_cuda, conv1d_ncl_batched,
+                                              conv1d_plain)
+    from ditto_tts_tpu_torch.ops.snake import snake_coeffs
+    from ditto_tts_tpu_torch.ops.snake_fused import (fused_snake_cuda,
+                                                     fused_snake_plain)
 
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(1234)
     checks = Checks()
-    entries = {}
+    entries = {}    # the kernels line: one shape per kernel
+    sites = {}      # PERF.md's table: every Pallas site at its path's shapes
 
     def rn(*shape, dtype=torch.float32, scale=1.0):
         return (scale * torch.randn(*shape, generator=gen,
                                     device=dev)).to(dtype)
 
+    def timed(shape, err, fn, plain, flops, nb, op_dtype, library=None,
+              iters=10):
+        b, by = bound_ms(flops, nb, op_dtype)
+        return {"shape": shape, "max_abs_err": err, "ms": cuda_ms(fn, iters),
+                "plain_ms": cuda_ms(plain, 3),
+                "library_ms": None if library is None
+                else cuda_ms(library, iters),
+                "bound_ms": b, "bound_by": by}
+
     dtypes = (torch.bfloat16, torch.float32)
+    bf16 = torch.bfloat16
 
     # ---- A: attention (self at the 10 s / 20 s latent lengths, cross) ----
     for dt in dtypes:
@@ -137,29 +184,23 @@ def kernel_phase(torch, rec):
             want = attention_plain(q, k, v)
             err = checks.compare("attention", f"{dn} B4 H12 Sq{sq} Sk{sk} "
                                  "D64", got, want, dn)
-            if dt == torch.bfloat16 and (sq, sk) == (750, 750):
-                flops = 4.0 * 4 * 12 * sq * sk * 64
-                b, by = bound_ms(flops, nbytes(q, k, v, got), dt)
-                entries["attention"] = {
-                    "shape": "bf16 B=4 H=12 Sq=Sk=750 D=64 (10 s self)",
-                    "max_abs_err": err,
-                    "ms": cuda_ms(lambda: attention_cuda(q, k, v), 50),
-                    "plain_ms": cuda_ms(lambda: attention_plain(q, k, v), 10),
-                    "library_ms": cuda_ms(
-                        lambda: F.scaled_dot_product_attention(q, k, v), 50),
-                    "bound_ms": b, "bound_by": by}
+            if dt == bf16 and (sq, sk) == (750, 750):
+                entries["attention"] = timed(
+                    "bf16 B=4 H=12 Sq=Sk=750 D=64 (10 s self)", err,
+                    lambda: attention_cuda(q, k, v),
+                    lambda: attention_plain(q, k, v),
+                    4.0 * 4 * 12 * sq * sk * 64, nbytes(q, k, v, got), dt,
+                    lambda: F.scaled_dot_product_attention(q, k, v), 50)
 
     # ---- B: conv1d at SEANet and vocoder shapes ----
     conv_cases = [   # (label, B, C, T_out, O, K, dil, dtype)
         ("SEANet resblock 32->16 k3", 4, 32, 240000, 16, 3, 1, torch.float32),
         ("SEANet final 32->1 k7", 4, 32, 240000, 1, 7, 1, torch.float32),
-        ("vocoder conv_pre 100->1536 k7", 4, 100, 938, 1536, 7, 1,
-         torch.bfloat16),
-        ("vocoder 768 k11 d5", 4, 768, 3752, 768, 11, 5, torch.bfloat16),
-        ("vocoder 384 k11 d5", 4, 384, 15008, 384, 11, 5, torch.bfloat16),
-        ("vocoder 24 k11 d5", 4, 24, 240128, 24, 11, 5, torch.bfloat16),
-        ("vocoder upsample poly 96->2x48 k2", 4, 96, 60033, 96, 2, 1,
-         torch.bfloat16),
+        ("vocoder conv_pre 100->1536 k7", 4, 100, 938, 1536, 7, 1, bf16),
+        ("vocoder 768 k11 d5", 4, 768, 3752, 768, 11, 5, bf16),
+        ("vocoder 384 k11 d5", 4, 384, 15008, 384, 11, 5, bf16),
+        ("vocoder 24 k11 d5", 4, 24, 240128, 24, 11, 5, bf16),
+        ("vocoder upsample poly 96->2x48 k2", 4, 96, 60033, 96, 2, 1, bf16),
     ]
     for label, b_, c, t_out, o, k, dil, dt0 in conv_cases:
         for dt in (dt0,) if dt0 == torch.float32 else dtypes:
@@ -171,20 +212,34 @@ def kernel_phase(torch, rec):
             want = conv1d_plain(x, w, bias, dilation=dil)
             err = checks.compare("conv1d", f"{dn} {label} T{t_out}", got,
                                  want, dn)
-            if label.startswith("vocoder 768") and dt == torch.bfloat16:
-                flops = 2.0 * b_ * o * c * k * t_out
-                bb, by = bound_ms(flops, nbytes(x, w, bias, got), dt)
-                entries["conv1d"] = {
-                    "shape": f"bf16 B=4 C=O=768 K=11 dil=5 T={t_out} "
-                             "(vocoder stage 0)",
-                    "max_abs_err": err,
-                    "ms": cuda_ms(lambda: conv1d_cuda(x, w, bias,
-                                                      dilation=dil), 10),
-                    "plain_ms": cuda_ms(lambda: conv1d_plain(
-                        x, w, bias, dilation=dil), 3),
-                    "library_ms": cuda_ms(lambda: F.conv1d(
-                        x, w, bias.to(dt), dilation=dil), 10),
-                    "bound_ms": bb, "bound_by": by}
+            if label.startswith("vocoder 768") and dt == bf16:
+                entries["conv1d"] = timed(
+                    f"bf16 B=4 C=O=768 K=11 dil=5 T={t_out} (vocoder stage "
+                    "0)", err, lambda: conv1d_cuda(x, w, bias, dilation=dil),
+                    lambda: conv1d_plain(x, w, bias, dilation=dil),
+                    2.0 * b_ * o * c * k * t_out, nbytes(x, w, bias, got), dt,
+                    lambda: F.conv1d(x, w, bias.to(dt), dilation=dil))
+
+    # ---- B as #4: the whole-batch time-minor conv (codec geometry) and
+    # its B=1 gate ----
+    for dt in dtypes:
+        dn = str(dt).split(".")[1]
+        for b_ in (8, 1):
+            x = rn(b_, 32, 240002, dtype=dt)
+            w = rn(32, 32, 3, dtype=dt, scale=96 ** -0.5)
+            bias = rn(32)
+            got = conv1d_ncl_batched(x, w, bias)
+            want = conv1d_plain(x, w, bias)
+            err = checks.compare("conv1d", f"#4 {dn} B{b_} C=O=32 T240000 K3"
+                                 + (" (gated)" if b_ == 1 else ""), got, want,
+                                 dn)
+            if b_ == 8 and dt == torch.float32:
+                sites["#4"] = timed(
+                    "fp32 B=8 C=O=32 K=3 T=240000 (its docstring's codec "
+                    "geometry)", err, lambda: conv1d_ncl_batched(x, w, bias),
+                    lambda: conv1d_plain(x, w, bias),
+                    2.0 * 8 * 32 * 32 * 3 * 240000, nbytes(x, w, bias, got),
+                    dt, lambda: F.conv1d(x, w, bias))
 
     # ---- C: fused AA-SnakeBeta -> conv at the fused widths ----
     for c, t in ((384, 15008), (192, 30016), (96, 60032)):
@@ -203,28 +258,97 @@ def kernel_phase(torch, rec):
                                                  dilation=dil)
                     err = checks.compare("act_conv", f"{dn} C{c} T{t} K{k} "
                                          f"dil{dil}", got, want, dn)
-                    if (c, k, dil, dt) == (384, 11, 5, torch.bfloat16):
-                        flops = 2.0 * 4 * c * c * k * t + 56.0 * 4 * c * t
-                        bb, by = bound_ms(flops, nbytes(x, w, bias, a, inv_b,
-                                                        got), dt)
-                        entries["act_conv"] = {
-                            "shape": f"bf16 B=4 C=O=384 K=11 dil=5 T={t} "
-                                     "(vocoder stage 1)",
-                            "max_abs_err": err,
-                            "ms": cuda_ms(lambda: aa_snake_conv1d_cuda(
-                                x, a, inv_b, w, bias, dilation=dil), 10),
-                            "plain_ms": cuda_ms(lambda: aa_snake_conv1d_plain(
-                                x, a, inv_b, w, bias, dilation=dil), 3),
-                            "library_ms": None,
-                            "bound_ms": bb, "bound_by": by}
+                    if (c, k, dil, dt) == (384, 11, 5, bf16):
+                        entries["act_conv"] = timed(
+                            f"bf16 B=4 C=O=384 K=11 dil=5 T={t} (vocoder "
+                            "stage 1)", err,
+                            lambda: aa_snake_conv1d_cuda(
+                                x, a, inv_b, w, bias, dilation=dil),
+                            lambda: aa_snake_conv1d_plain(
+                                x, a, inv_b, w, bias, dilation=dil),
+                            2.0 * 4 * c * c * k * t + 56.0 * 4 * c * t,
+                            nbytes(x, w, bias, a, inv_b, got), dt)
+
+    # ---- C with the residual epilogue (#7) at the narrow stages ----
+    for c, t in ((48, 120064), (24, 240128)):
+        for dt in dtypes:
+            dn = str(dt).split(".")[1]
+            x = rn(4, c, t, dtype=dt, scale=2.0)
+            res = rn(4, c, t, dtype=dt)
+            a = torch.exp(rn(c, scale=0.3))
+            inv_b = 1.0 / (torch.exp(rn(c, scale=0.3)) + 1e-9)
+            for k in (3, 7, 11):
+                w = rn(c, c, k, dtype=dt, scale=(c * k) ** -0.5)
+                bias = rn(c)
+                for dil in (1, 3, 5):
+                    for r in (None, res):
+                        got = aa_snake_conv1d_cuda(x, a, inv_b, w, bias,
+                                                   dilation=dil, residual=r)
+                        want = aa_snake_conv1d_plain(x, a, inv_b, w, bias,
+                                                     dilation=dil, residual=r)
+                        err = checks.compare(
+                            "act_conv", f"{dn} C{c} T{t} K{k} dil{dil}"
+                            + (" +residual" if r is not None else ""), got,
+                            want, dn)
+                        if (k, dil, dt) == (11, 5, bf16) and r is not None:
+                            sites[f"#7 C{c}"] = timed(
+                                f"bf16 B=4 C=O={c} K=11 dil=5 T={t} "
+                                "+residual", err,
+                                lambda: aa_snake_conv1d_cuda(
+                                    x, a, inv_b, w, bias, dilation=dil,
+                                    residual=res),
+                                lambda: aa_snake_conv1d_plain(
+                                    x, a, inv_b, w, bias, dilation=dil,
+                                    residual=res),
+                                2.0 * 4 * c * c * k * t + 57.0 * 4 * c * t,
+                                nbytes(x, w, bias, a, inv_b, res, got), dt)
+
+    # ---- D: the standalone AA snake, #9 mode (fp32 upsample taps) at the
+    # NLC widths on a [B, T, C] tensor and on the [B, C, T] carry, #8 mode
+    # (taps in x's type) at the NCL-hybrid widths; a ragged T and T < 8 ----
+    d_cases = [("#9", 768, 3752), ("#9", 384, 15008), ("#9", 192, 30016),
+               ("#9", 96, 60032), ("#8", 48, 120064), ("#8", 24, 240128),
+               ("#9", 100, 1000), ("#8", 40, 1000), ("#9", 96, 5),
+               ("#8", 24, 7)]
+    for site, c, t in d_cases:
+        up_x = site == "#8"
+        for dt in dtypes:
+            dn = str(dt).split(".")[1]
+            for with_beta in (True, False):
+                a, inv_b = snake_coeffs(rn(c, scale=0.3), rn(c, scale=0.3)
+                                        if with_beta else None)
+                for view in ("[B,C,T]", "[B,T,C]") if site == "#9" \
+                        else ("[B,C,T]",):
+                    x = rn(4, c, t, dtype=dt, scale=2.0) if view == "[B,C,T]" \
+                        else rn(4, t, c, dtype=dt, scale=2.0).transpose(1, 2)
+                    got = fused_snake_cuda(x, a, inv_b, up_in_x_dtype=up_x)
+                    want = fused_snake_plain(x, a, inv_b, up_in_x_dtype=up_x)
+                    err = checks.compare(
+                        "snake", f"{site} {dn} B4 C{c} T{t} {view} "
+                        + ("snakebeta" if with_beta else "snake"), got, want,
+                        dn)
+                    if dt == bf16 and with_beta and t >= 3752 and (
+                            view == "[B,C,T]" or c == 384):
+                        key = f"{site} C{c}" + (" [B,T,C]" if view ==
+                                                "[B,T,C]" else "")
+                        sites[key] = timed(
+                            f"bf16 B=4 C={c} T={t} {view}", err,
+                            lambda: fused_snake_cuda(
+                                x, a, inv_b, up_in_x_dtype=up_x),
+                            lambda: fused_snake_plain(
+                                x, a, inv_b, up_in_x_dtype=up_x),
+                            55.0 * x.numel(), nbytes(x, got, a, inv_b),
+                            torch.float32, iters=20)
+    entries["snake"] = sites["#9 C384"]
     if checks.bad:
         fail("kernel parity: " + "; ".join(checks.bad))
-    for name, e in entries.items():
+    for name, e in list(entries.items()) + list(sites.items()):
         lib = "n/a" if e["library_ms"] is None else f"{e['library_ms']:.4f}"
         log(f"  {name} at {e['shape']}: kernel {e['ms']:.4f} ms, plain "
             f"{e['plain_ms']:.4f} ms, library {lib} ms, bound "
             f"{e['bound_ms']:.4f} ms ({e['bound_by']})")
     rec["kernel_entries"] = entries
+    rec["kernel_sites"] = sites
     return entries
 
 
@@ -299,10 +423,8 @@ def serving_phase(torch, np, cfg, params, rec):
                   "output_audio_s_per_s": wav20.numel() / 24000 / dt20,
                   "waveform_shape": list(wav20.shape)}
     launches = dict(kernels.launches)
-    log(f"  launches over the serving phase: {launches}")
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        fail(f"serving: kernels never launched on the main path: {missing}")
+    log(f"  launches over the serving phase (5 requests): {launches}")
+    check_launches("default serving path", launches, DEFAULT_PATH, 5)
 
     # per-stage seconds of one 10 s request (host clock, synchronized)
     st = build_stage_fns(cfg)
@@ -334,6 +456,193 @@ def serving_phase(torch, np, cfg, params, rec):
                                          for k, v in stages.items()))
     out["10s"]["stages_s"] = stages
     rec["serving"] = out
+    return launches, inputs, mel
+
+
+# --------------------------------------------------------------------------
+# phase 6: the aa_impl="fused_pallas" path (kernel D)
+# --------------------------------------------------------------------------
+
+def sync_time(torch, fn, *args, **kw):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_wave(torch, wav, label):
+    if not bool(torch.isfinite(wav).all()):
+        fail(f"{label}: non-finite waveform")
+    if wav.abs().max().item() > 1.0:
+        fail(f"{label}: waveform outside [-1, 1]")
+
+
+def card_vs_cpu(torch, label, forward, p_gpu, p_cpu, vcfg, mel):
+    """The vocoder on the card against the CPU plain versions, fp32."""
+    from ditto_tts_tpu_torch import kernels
+    kernels.reset_launches()
+    with torch.inference_mode():
+        got = forward(p_gpu, vcfg, mel.cuda())
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        want = forward(p_cpu, vcfg, mel.cpu())
+    err = (got.cpu() - want).abs().max().item()
+    clamped = (want.abs() >= 1.0).float().mean().item()
+    log(f"  {label}: card vs CPU max|err| {err:.3e} (bound 1e-3; "
+        f"max|wav| {want.abs().max().item():.3f}, {clamped:.1%} clamped), "
+        f"launches {launches}")
+    if not err <= 1e-3:
+        fail(f"{label}: card and CPU differ by {err}")
+    return {"max_abs_err": err, "clamped_share": clamped,
+            "launches": launches}
+
+
+def fused_pallas_phase(torch, cfg, params, params_cpu, inputs, mel, rec):
+    from ditto_tts_tpu_torch import kernels
+    from ditto_tts_tpu_torch.infer.generator import (
+        build_stage_fns, build_synthesize_pipelined)
+    from ditto_tts_tpu_torch.models.vocoder import bigvgan_forward
+
+    fcfg = cfg.replace(vocoder=cfg.vocoder.replace(aa_impl="fused_pallas"))
+    serve = build_synthesize_pipelined(fcfg)
+    dev = torch.device("cuda")
+    out = {}
+    kernels.reset_launches()
+    times = []
+    for seed in (7, 7, 8):       # warm-up, then two timed requests
+        wav, dt = sync_time(torch, serve, params, *inputs,
+                            torch.Generator(device=dev).manual_seed(seed))
+        check_wave(torch, wav, f"fused_pallas seed {seed}")
+        times.append(dt)
+    launches = dict(kernels.launches)
+    log(f"  10 s bucket B=4: warm-up {times[0]:.3f} s, requests "
+        f"{[round(t, 4) for t in times[1:]]} s, "
+        f"{4 * 10 / min(times[1:]):.2f} audio-s/s; launches over 3 requests "
+        f"{launches}")
+    check_launches("fused_pallas serving path", launches, FUSED_PALLAS_PATH,
+                   3)
+    out["10s"] = {"batch": 4, "warmup_s": times[0], "request_s": times[1:],
+                  "audio_s_per_s": 4 * 10 / min(times[1:]),
+                  "launches_3_requests": launches}
+
+    # both settings in turns (default, fused_pallas, fused_pallas, default),
+    # whole requests and then the vocoder stage alone on phase 4's mel
+    serves = {"fused_conv": build_synthesize_pipelined(cfg),
+              "fused_pallas": serve}
+    order = ("fused_conv", "fused_pallas", "fused_pallas", "fused_conv")
+    req = {"fused_conv": [], "fused_pallas": []}
+    for impl in order:
+        req[impl].append(sync_time(
+            torch, serves[impl], params, *inputs,
+            torch.Generator(device=dev).manual_seed(7))[1])
+    voc = {"fused_conv": [], "fused_pallas": []}
+    with torch.inference_mode():
+        for impl in order:
+            voc[impl].append(sync_time(torch, bigvgan_forward,
+                                       params.vocoder, cfg.vocoder, mel,
+                                       aa_impl=impl)[1])
+    for label, d in (("requests", req), ("vocoder stage", voc)):
+        log(f"  10 s B=4 {label} in turns (s): " + "; ".join(
+            f"{k} {[round(v, 4) for v in vs]}" for k, vs in d.items()))
+    out["request_in_turns_s"] = req
+    out["vocoder_stage_s"] = voc
+
+    # the stages of one fused_pallas request (host clock, synchronized)
+    st = build_stage_fns(fcfg)
+    stages = {}
+    audio, mask, text = inputs
+    with torch.inference_mode():
+        g = torch.Generator(device=dev).manual_seed(7)
+        lat, stages["encode"] = sync_time(torch, st["encode"], params, audio,
+                                          mask)
+        ref, stages["sampler"] = sync_time(torch, st["sampler"], params, lat,
+                                           text, g)
+        idx, stages["vq_indices"] = sync_time(torch, st["vq_indices"],
+                                              params, ref)
+        wav, stages["codec_decode"] = sync_time(
+            torch, st["codec_decode"], params, idx, audio.shape[-1])
+        m, stages["mel"] = sync_time(torch, st["mel"], params, wav)
+        _, stages["vocoder"] = sync_time(torch, st["vocoder"], params, m)
+    log("  10 s stages, fused_pallas (s): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in stages.items()))
+    out["10s"]["stages_s"] = stages
+
+    # full width, B=1, fp32, on the first ~1 s of that mel
+    vcfg = cfg.vocoder.replace(aa_impl="fused_pallas",
+                               compute_dtype="float32",
+                               carry_dtype="float32")
+    out["card_vs_cpu"] = card_vs_cpu(
+        torch, "full-width vocoder, fused_pallas, B=1, 94 frames",
+        bigvgan_forward, params.vocoder, params_cpu.vocoder, vcfg,
+        mel[:1, :, :94].float())
+    if out["card_vs_cpu"]["launches"]["snake"] != FUSED_PALLAS_PATH["snake"]:
+        fail("fused_pallas: kernel D was not launched 108 times in one "
+             "vocoder forward")
+    rec["fused_pallas"] = out
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase 7: aa_impl="fused_ncl" on BigVGAN's last two stages (kernel C with
+# the residual epilogue)
+# --------------------------------------------------------------------------
+
+def fused_ncl_phase(torch, np, cfg, params, rec):
+    from ditto_tts_tpu_torch import kernels
+    from ditto_tts_tpu_torch.models.vocoder import bigvgan_forward
+    from ditto_tts_tpu_torch.params import _vocoder_spec, fill_spec, tree_map
+
+    # upsample_initial_channel 96, rates (2, 2): stages at 48 and 24, both
+    # NCL-hybrid, as in the full model's last two stages
+    ncfg = cfg.vocoder.replace(upsample_initial_channel=96,
+                               upsample_rates=(2, 2),
+                               upsample_kernel_sizes=(4, 4),
+                               aa_impl="fused_ncl")
+    p_cpu = tree_map(torch.from_numpy, fill_spec(_vocoder_spec(ncfg), 3))
+    p_gpu = tree_map(lambda a: a.cuda(), p_cpu)
+    rng = np.random.default_rng(12)
+    mel = torch.from_numpy(rng.standard_normal((4, 100, 60032)).astype(
+        np.float32)).cuda()
+    out = {}
+    with torch.inference_mode():
+        kernels.reset_launches()
+        wav, t_first = sync_time(torch, bigvgan_forward, p_gpu, ncfg, mel)
+        launches = dict(kernels.launches)
+        # against the default setting on the same stages, in turns
+        turns = {"fused_conv": [], "fused_ncl": []}
+        for impl in ("fused_conv", "fused_ncl", "fused_ncl", "fused_conv"):
+            turns[impl].append(sync_time(torch, bigvgan_forward, p_gpu,
+                                         ncfg, mel, aa_impl=impl)[1])
+    check_wave(torch, wav, "fused_ncl")
+    if tuple(wav.shape) != (4, 1, 240128):
+        fail(f"fused_ncl: waveform shape {tuple(wav.shape)}")
+    log(f"  B=4, 60032 mel frames -> stages 48 x 120064, 24 x 240128: "
+        f"{t_first:.4f} s first; in turns (s): " + "; ".join(
+            f"{k} {[round(v, 4) for v in vs]}" for k, vs in turns.items())
+        + f"; launches {launches}")
+    check_launches("fused_ncl vocoder", launches, FUSED_NCL_PATH, 1)
+    out.update(first_s=t_first, in_turns_s=turns, launches=launches)
+
+    out["card_vs_cpu"] = card_vs_cpu(
+        torch, "fused_ncl stages, B=1, 300 frames", bigvgan_forward, p_gpu,
+        p_cpu, ncfg.replace(compute_dtype="float32", carry_dtype="float32"),
+        torch.from_numpy(rng.standard_normal((1, 100, 300)).astype(
+            np.float32)))
+
+    # at full width the first stage is channels-last, where the JAX package
+    # raises for fused_ncl
+    try:
+        with torch.inference_mode():
+            bigvgan_forward(params.vocoder,
+                            cfg.vocoder.replace(aa_impl="fused_ncl"),
+                            mel[:1, :, :16])
+    except NotImplementedError as e:
+        log(f"  full width under fused_ncl raises: {e}")
+        out["full_width_raises"] = str(e)
+    else:
+        fail("fused_ncl at full width did not raise")
+    rec["fused_ncl"] = out
     return launches
 
 
@@ -456,21 +765,43 @@ def main() -> None:
     params_cpu = init_generator_params(cfg, seed=0)
     params = params_cpu.to("cuda")
     log(f"  parameters: {time.perf_counter() - t0:.1f} s")
-    launches = serving_phase(torch, np, cfg, params, rec)
+    launches, inputs, mel = serving_phase(torch, np, cfg, params, rec)
 
     log("== 5. chain parity, card vs CPU (fp32, TF32 off)")
     parity_phase(torch, np, cfg, params_cpu, params, rec)
 
-    sources = {"attention": "ditto_tts_tpu/ops/attention.py:95 "
-                            "pallas_attention + :173 pallas_attention_packed",
-               "conv1d": "ditto_tts_tpu/ops/conv_pallas.py:74 "
-                         "conv1d_nlc_pallas + :289 conv1d_ncl_pallas",
-               "act_conv": "ditto_tts_tpu/ops/act_conv_pallas.py:135 "
-                           "aa_snake_conv1d"}
+    log('== 6. aa_impl="fused_pallas": serving, vocoder stage, card vs CPU')
+    launches_fp = fused_pallas_phase(torch, cfg, params, params_cpu, inputs,
+                                     mel, rec)
+
+    log('== 7. aa_impl="fused_ncl" on BigVGAN\'s last two stages')
+    fused_ncl_phase(torch, np, cfg, params, rec)
+
+    # launches per 10 s request (fused_ncl: per forward of its two stages)
+    paths = {"default": DEFAULT_PATH, "fused_pallas": FUSED_PALLAS_PATH,
+             "fused_ncl": FUSED_NCL_PATH}
+    sources = {
+        "attention": "ditto_tts_tpu/ops/attention.py:95 pallas_attention "
+                     "(#1) + :173 pallas_attention_packed (#2)",
+        "conv1d": "ditto_tts_tpu/ops/conv_pallas.py:74 conv1d_nlc_pallas "
+                  "(#3) + :289 conv1d_ncl_pallas (#5) + :191 "
+                  "conv1d_ncl_batched_pallas (#4, no caller on a path)",
+        "act_conv": "ditto_tts_tpu/ops/act_conv_pallas.py:135 "
+                    "aa_snake_conv1d (#6) + :303 aa_snake_conv1d_ncl (#7)",
+        "snake": "ditto_tts_tpu/ops/snake_pallas.py:109 fused_snake_pallas "
+                 "(#8) + ditto_tts_tpu/ops/snake_pallas_nlc.py:80 "
+                 "fused_snake_nlc (#9)"}
+    # each kernel's count from the run of the path that carries it: the
+    # default serving phase (5 requests) for A, B, C; phase 6 (3 requests)
+    # for D
+    counted = dict(launches, snake=launches_fp["snake"])
     line = {"kernels": [dict(
         name=name, route="cuda",
         source=f"ditto_tts_tpu_torch/csrc/{name}.cu",
-        replaces=sources[name], launches=launches[name],
+        replaces=sources[name] + "; launches per request: " + ", ".join(
+            f"{p} {paths[p][name]}" for p in paths),
+        launches=counted[name],
+        launches_per_request={p: paths[p][name] for p in paths},
         **{k: entries[name][k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape")}) for name in kernels.KERNELS]}

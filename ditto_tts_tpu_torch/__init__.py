@@ -1,10 +1,10 @@
 """PyTorch + CUDA port of the DiTTo serving chain for one NVIDIA H100.
 
 The JAX package ``ditto_tts_tpu`` is the reference; this package imports
-``torch`` and never ``jax`` or ``ditto_tts_tpu``. Every Pallas kernel on the
-serving path is a hand-written CUDA kernel under ``csrc/`` (built at first
-use by ``kernels.py``); each wrapper takes its plain PyTorch version only
-for a tensor on the CPU.
+``torch`` and never ``jax`` or ``ditto_tts_tpu``. Every Pallas kernel of the
+JAX package has a hand-written CUDA counterpart under ``csrc/`` (built at
+first use by ``kernels.py``); each wrapper takes its plain PyTorch version
+only for a tensor on the CPU.
 """
 
 import torch

@@ -14,7 +14,16 @@
 //       z[t] = sum_r h[2r] s(o)[t+r-3] + h[2r+1] s(e)[t+r-2]
 //     with h the 12-tap kaiser-sinc low-pass, then zeroed outside [0, T);
 //   * z is rounded to the compute type before the tap contraction, which
-//     sums in fp32 with the fp32 bias; the output has x's type.
+//     sums in fp32 with the fp32 bias (and, for the time-minor twin
+//     aa_snake_conv1d_ncl, the residual) before the single cast to the
+//     output type TY (the signal's carry type; x and w have the compute
+//     type T).
+//
+// It also replaces ditto_tts_tpu/ops/act_conv_pallas.py aa_snake_conv1d_ncl
+// (_kernel_ncl), the same function on the time-minor layout with the AMP
+// block's residual add in the epilogue (models/vocoder.py:299-330, under
+// aa_impl="fused_ncl", at widths 48 and 24): the port carries [B, C, T], so
+// that is this kernel with the optional residual pointer.
 // The Pallas kernel's pi-periodic polynomial sin^2 (ops/fastmath.py) was a
 // Mosaic workaround; this kernel uses sinf (they differ by <= ~5e-7).
 //
@@ -31,7 +40,8 @@
 // memory, the two 6-tap upsample phases and the snake are evaluated into
 // two phase buffers, the 12-tap decimation writes z over the x buffer, and
 // the chunk's taps accumulate into registers. The activation is recomputed
-// once per output-channel tile (O/64 times), a small cost next to the taps.
+// once per output-channel tile (O/OB times), a small cost next to the taps;
+// OB is 64, or 32 where O <= 32 (the 24-wide stage), so no warp row idles.
 
 #include "common.cuh"
 
@@ -45,12 +55,13 @@ struct Taps {
   float eu[6], ou[6], ze[6], zo[6];  // 2h[2r], 2h[2r+1], h[2r+1], h[2r]
 };
 
-template <typename T, int TO, int TTH>
+template <typename T, typename TY, int TO, int TTH>
 __global__ void __launch_bounds__(kThreads)
 act_conv_kernel(const T* __restrict__ x, const float* __restrict__ a,
                 const float* __restrict__ inv_b, const T* __restrict__ w,
-                const float* __restrict__ bias, T* __restrict__ y, Taps taps,
-                int C, int Tlen, int O, int K, int dil) {
+                const float* __restrict__ bias, const TY* __restrict__ res,
+                TY* __restrict__ y, Taps taps, int C, int Tlen, int O, int K,
+                int dil) {
   constexpr int OB = 8 * TO, TB = 32 * TTH;
   extern __shared__ float smem[];
   const int ca = (K - 1) * dil / 2;   // 'SAME' padding of the conv
@@ -142,46 +153,63 @@ act_conv_kernel(const T* __restrict__ x, const float* __restrict__ a,
     const int o = o0 + to * TO + i;
     if (o >= O) continue;
     const float bv = bias != nullptr ? bias[o] : 0.f;
-    T* yr = y + (static_cast<long long>(b) * O + o) * Tlen;
+    const long long row = (static_cast<long long>(b) * O + o) * Tlen;
 #pragma unroll
     for (int j = 0; j < TTH; ++j) {
       const int t = t0 + tt + 32 * j;
-      if (t < Tlen) yr[t] = from_f<T>(acc[i][j] + bv);
+      if (t >= Tlen) continue;
+      float v = acc[i][j] + bv;
+      if (res != nullptr) v += to_f<TY>(res[row + t]);
+      y[row + t] = from_f<TY>(v);
     }
   }
 }
 
-template <typename T>
+template <typename T, typename TY, int TO>
 cudaError_t launch(const void* x, const float* a, const float* inv_b,
-                   const void* w, const float* bias, void* y, const Taps& taps,
-                   int B, int C, int Tlen, int O, int K, int dil,
-                   cudaStream_t stream) {
-  constexpr int TO = 8, TTH = 8;
+                   const void* w, const float* bias, const void* res, void* y,
+                   const Taps& taps, int B, int C, int Tlen, int O, int K,
+                   int dil, cudaStream_t stream) {
+  constexpr int TTH = 8;
   constexpr int OB = 8 * TO, TB = 32 * TTH;
   const int ca = (K - 1) * dil / 2;
   const int NZ = TB + 2 * ca;
   const size_t smem =
       (static_cast<size_t>(kCC) * ((NZ + 12) + 2 * (NZ + 6)) + OB * kCC * K) *
       sizeof(float);
-  auto kernel = act_conv_kernel<T, TO, TTH>;
+  auto kernel = act_conv_kernel<T, TY, TO, TTH>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Tlen + TB - 1) / TB, (O + OB - 1) / OB, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), a, inv_b, static_cast<const T*>(w), bias,
-      static_cast<T*>(y), taps, C, Tlen, O, K, dil);
+      static_cast<const TY*>(res), static_cast<TY*>(y), taps, C, Tlen, O, K,
+      dil);
   return cudaGetLastError();
+}
+
+template <typename T, typename TY>
+cudaError_t dispatch(const void* x, const float* a, const float* inv_b,
+                     const void* w, const float* bias, const void* res,
+                     void* y, const Taps& taps, int B, int C, int Tlen, int O,
+                     int K, int dil, cudaStream_t s) {
+  if (O <= 32)
+    return launch<T, TY, 4>(x, a, inv_b, w, bias, res, y, taps, B, C, Tlen, O, K, dil, s);
+  return launch<T, TY, 8>(x, a, inv_b, w, bias, res, y, taps, B, C, Tlen, O, K, dil, s);
 }
 
 }  // namespace
 }  // namespace ditto
 
-// x [B, C, T], a / inv_b [C] fp32, w [O, C, K] (K odd), bias [O] fp32 or
-// null, y [B, O, T]; taps: 24 floats (2h[2r], 2h[2r+1], h[2r+1], h[2r])
+// x [B, C, T] and w [O, C, K] (K odd) of type `dtype`, a / inv_b [C] fp32,
+// bias [O] fp32 or null, residual [B, O, T] of type `ydtype` or null, y
+// [B, O, T] of type `ydtype`; taps: 24 floats (2h[2r], 2h[2r+1], h[2r+1],
+// h[2r])
 extern "C" int ditto_act_conv(const void* x, const float* a, const float* inv_b,
-                              const void* w, const float* bias, void* y,
-                              const float* taps, int B, int C, int T, int O,
-                              int K, int dil, int dtype, void* stream) {
+                              const void* w, const float* bias,
+                              const void* res, void* y, const float* taps,
+                              int B, int C, int T, int O, int K, int dil,
+                              int dtype, int ydtype, void* stream) {
   using namespace ditto;
   Taps tp;
   for (int r = 0; r < 6; ++r) {
@@ -191,9 +219,14 @@ extern "C" int ditto_act_conv(const void* x, const float* a, const float* inv_b,
     tp.zo[r] = taps[18 + r];
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32)
-    return launch<float>(x, a, inv_b, w, bias, y, tp, B, C, T, O, K, dil, s);
-  if (dtype == kBFloat16)
-    return launch<__nv_bfloat16>(x, a, inv_b, w, bias, y, tp, B, C, T, O, K, dil, s);
+  using bf16 = __nv_bfloat16;
+  if (dtype == kFloat32 && ydtype == kFloat32)
+    return dispatch<float, float>(x, a, inv_b, w, bias, res, y, tp, B, C, T, O, K, dil, s);
+  if (dtype == kFloat32 && ydtype == kBFloat16)
+    return dispatch<float, bf16>(x, a, inv_b, w, bias, res, y, tp, B, C, T, O, K, dil, s);
+  if (dtype == kBFloat16 && ydtype == kFloat32)
+    return dispatch<bf16, float>(x, a, inv_b, w, bias, res, y, tp, B, C, T, O, K, dil, s);
+  if (dtype == kBFloat16 && ydtype == kBFloat16)
+    return dispatch<bf16, bf16>(x, a, inv_b, w, bias, res, y, tp, B, C, T, O, K, dil, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

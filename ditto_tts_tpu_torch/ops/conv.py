@@ -90,3 +90,32 @@ def conv1d(x, weight, bias=None, *, dilation: int = 1,
     else:
         y = conv1d_cuda(xc, wc, bc, dilation=dilation)
     return y.to(out_dtype)
+
+
+def conv1d_ncl_batched(x, weight, bias=None, *, dilation: int = 1,
+                       compute_dtype: Optional[torch.dtype] = None):
+    """The counterpart of the Pallas ``conv1d_ncl_batched_pallas``: a VALID
+    stride-1 conv of x [B, C, T] with the whole batch in one launch, on
+    kernel B (a block of kernel B owns one batch row's tile, and one launch
+    covers every row).
+
+    The Pallas kernel multiplied a block-diagonal [B*O, K*B*C] weight into
+    a [K*B*C, block] window so that the batch filled the TPU's 128-row
+    matrix unit; its docstring measured no gain over the per-batch kernel
+    (3.21 vs 2.94 ms at B=8, C=32, T=240k, fp32, K=3). On the H100 that
+    expansion would only multiply the work by B. The JAX wrapper's gates
+    stay as far as they show in the result: its batch gate (B == 1, B*C or
+    B*O not a multiple of 8, B*C > 1024, K*B*C > 4096) picks the per-batch
+    Pallas kernel, which computes the same function, here kernel B as well;
+    without ``compute_dtype`` the operands promote to a common type; and a
+    T too short for the two-block halo runs the JAX fallback conv, which
+    returns the promoted type where the kernels return x's."""
+    if compute_dtype is None:
+        compute_dtype = torch.promote_types(x.dtype, weight.dtype)
+    k = weight.shape[-1]
+    halo = max(-(-((k - 1) * dilation) // 128) * 128, 128)
+    t_out = x.shape[-1] - (k - 1) * dilation
+    if -(-t_out // 128) * 128 < halo:
+        x = x.to(compute_dtype)     # the result then has the promoted type
+    return conv1d(x, weight, bias, dilation=dilation,
+                  compute_dtype=compute_dtype)

@@ -1,5 +1,5 @@
-"""Snake / SnakeBeta and their anti-aliased polyphase form (the JAX
-``ops/snake.py`` and the kaiser filter of ``ops/resample.py``).
+"""Snake / SnakeBeta and their anti-aliased forms (the JAX ``ops/snake.py``
+and ``ops/fir_gemm.py``).
 
   snake(x)     = x + (1/alpha) sin^2(alpha x)
   snakebeta(x) = x + (1/(beta+eps)) sin^2(alpha x)      (logscale: exp)
@@ -11,45 +11,26 @@ decimation phases, with BigVGAN's replicate edges. It runs in fp32 and
 returns x's type; the vocoder uses it for the activations outside the
 fused act->conv widths and for act_post. The TPU's fast polynomial sin^2
 was a Mosaic workaround; the port uses ``torch.sin``.
+
+The vocoder's other ``aa_impl`` settings take the other two forms:
+``anti_aliased_activation`` (composed: 2x-rate upsample, activation, 2x
+decimation, the oracle) and ``polyphase_anti_aliased_activation_gemm`` (the
+four 6-tap FIRs as banded matrix products, which the JAX package lowers to
+XLA dot_generals; here ``torch.matmul``). Both run the activation on
+tensors of x's type, as the JAX package does.
 """
 
 from __future__ import annotations
 
 import functools
-import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from .resample import downsample1d, kaiser_sinc_filter1d, upsample1d
 
 _EPS = 1e-9
-
-
-def _kaiser_beta(a: float) -> float:
-    if a > 50.0:
-        return 0.1102 * (a - 8.7)
-    if a >= 21.0:
-        return 0.5842 * (a - 21.0) ** 0.4 + 0.07886 * (a - 21.0)
-    return 0.0
-
-
-@functools.lru_cache(maxsize=16)
-def kaiser_sinc_filter1d(cutoff: float, half_width: float,
-                         kernel_size: int) -> np.ndarray:
-    """LPF impulse response [kernel_size]; DC gain normalized to 1."""
-    even = kernel_size % 2 == 0
-    half_size = kernel_size // 2
-    delta_f = 4.0 * half_width
-    a = 2.285 * (half_size - 1) * math.pi * delta_f + 7.95
-    window = np.kaiser(kernel_size, _kaiser_beta(a))
-    if even:
-        time = np.arange(-half_size, half_size) + 0.5
-    else:
-        time = np.arange(kernel_size) - half_size
-    if cutoff == 0:
-        return np.zeros(kernel_size, np.float32)
-    filt = 2.0 * cutoff * window * np.sinc(2.0 * cutoff * time)
-    filt = filt / filt.sum()
-    return filt.astype(np.float32)
 
 
 def aa_filter() -> np.ndarray:
@@ -102,3 +83,62 @@ def polyphase_anti_aliased_activation(x, act_fn):
     o_p = torch.cat([lval.expand(*lval.shape[:-1], half - 3), so,
                      rval.expand(*rval.shape[:-1], half - 4)], dim=-1)
     return (taps(h[0::2], 0, o_p) + taps(h[1::2], 0, e_p)).to(x.dtype)
+
+
+def anti_aliased_activation(x, act_fn):
+    """BigVGAN Activation1d: 2x upsample -> pointwise activation -> 2x
+    downsample (x [B, C, T]; ``act_fn`` acts on tensors of x's type)."""
+    return downsample1d(act_fn(upsample1d(x)))
+
+
+_GEMM_TB = 128     # output samples per band block
+_GEMM_HALO = 16    # extra samples a block reads (>= 6 taps - 1)
+
+
+@functools.lru_cache(maxsize=16)
+def _band_matrix(taps: tuple) -> np.ndarray:
+    """[TB, TB + HALO] with A[i, i + m] = taps[m]."""
+    a = np.zeros((_GEMM_TB, _GEMM_TB + _GEMM_HALO), np.float32)
+    rows = np.arange(_GEMM_TB)
+    for m, w in enumerate(taps):
+        a[rows, rows + m] = w
+    return a
+
+
+def fir_gemm_t(x, taps, start: int, t_out: int):
+    """out[b, c, t] = sum_m taps[m] x[b, c, t + start + m] for t < t_out, as
+    one banded product over 128-sample blocks: operands in x's type (taps
+    rounded to it), fp32 sums, result in x's type."""
+    b, c, t_in = x.shape
+    nb = -(-t_out // _GEMM_TB)
+    need = start + (nb + 1) * _GEMM_TB
+    if need > t_in:
+        x = F.pad(x, (0, need - t_in))
+    main = x[..., start:start + nb * _GEMM_TB].reshape(b, c, nb, _GEMM_TB)
+    ext = x[..., start + _GEMM_TB:start + (nb + 1) * _GEMM_TB].reshape(
+        b, c, nb, _GEMM_TB)
+    win = torch.cat([main, ext[..., :_GEMM_HALO]], dim=3)
+    a = torch.from_numpy(_band_matrix(tuple(float(t) for t in taps))).to(
+        device=x.device, dtype=x.dtype).float()
+    out = torch.matmul(win.float(), a.t()).to(x.dtype)
+    return out.reshape(b, c, nb * _GEMM_TB)[..., :t_out]
+
+
+def polyphase_anti_aliased_activation_gemm(x, act_fn):
+    """``polyphase_anti_aliased_activation`` with each 6-tap FIR as a
+    banded product (``fir_gemm_t``), carried in x's type as the JAX
+    ``aa_impl="polyphase_gemm"`` is. x [B, C, T]; ``act_fn`` acts on
+    tensors of x's type."""
+    half = 6
+    h = aa_filter()
+    pad = half - 1
+    t = x.shape[-1]
+    xt = F.pad(x, (pad, pad), mode="replicate")
+    se = act_fn(fir_gemm_t(xt, 2.0 * h[0::2], pad - 3, t))
+    so = act_fn(fir_gemm_t(xt, 2.0 * h[1::2], pad - 2, t))
+    lval, rval = se[..., :1], so[..., -1:]
+    e_p = torch.cat([lval.expand(*lval.shape[:-1], half - 4), se,
+                     rval.expand(*rval.shape[:-1], half - 3)], dim=-1)
+    o_p = torch.cat([lval.expand(*lval.shape[:-1], half - 3), so,
+                     rval.expand(*rval.shape[:-1], half - 4)], dim=-1)
+    return fir_gemm_t(o_p, h[0::2], 0, t) + fir_gemm_t(e_p, h[1::2], 0, t)

@@ -2,14 +2,16 @@
 under ``torch.profiler``, device time summed by kernel.
 
     python -m ditto_tts_tpu_torch.profile_serving [--seconds 10] [--batch 4]
+        [--aa-impl fused_pallas]
 
-Runs the configuration of ``config.serving_config`` with random weights
-(numpy seed 0), warms up once, then profiles one request. Prints the card
+Runs the configuration of ``config.serving_config`` (with ``--aa-impl``,
+the vocoder under that ``aa_impl``) with random weights (numpy seed 0),
+warms up once, then profiles one request. Prints the card
 (name and power limit), the request's wall seconds, the summed device
 kernel time and its share of the wall time (the device's busy share), and
-the kernels in groups (the port's kernels A/B/C, GEMMs, the codec LSTM,
+the kernels in groups (the port's kernels A/B/C/D, GEMMs, the codec LSTM,
 other library kernels) and by name; with DITTO_RECORD_DIR set, writes
-the same as JSON to $DITTO_RECORD_DIR/profile_serving_<seconds>s.json.
+the same as JSON to $DITTO_RECORD_DIR/profile_serving_<seconds>s[_<aa_impl>].json.
 Needs one CUDA card.
 """
 
@@ -27,6 +29,7 @@ GROUPS = (   # (group, substrings of a kernel name), first match wins
     ("A attention", ("attn_kernel",)),
     ("B conv1d", ("conv1d_kernel",)),
     ("C act_conv", ("act_conv_kernel",)),
+    ("D snake", ("snake_kernel",)),
     ("gemm", ("gemm", "xmma", "cutlass", "cublas", "sm90_")),
     ("lstm", ("LSTM", "lstm", "RNN", "rnn")),
     ("conv (cuDNN)", ("conv", "Conv", "implicit", "cudnn")),
@@ -44,6 +47,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seconds", type=int, default=10)
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--aa-impl", default=None,
+                    help="the vocoder's aa_impl (default: the config's)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -62,6 +67,8 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     cfg = serving_config()
+    if args.aa_impl:
+        cfg = cfg.replace(vocoder=cfg.vocoder.replace(aa_impl=args.aa_impl))
     params = init_generator_params(cfg, seed=0).to("cuda")
     serve = build_synthesize_pipelined(cfg)
     n = 24000 * args.seconds
@@ -105,6 +112,7 @@ def main(argv=None) -> int:
         g[1] += cnt
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]
     out = {"card": card, "seconds": args.seconds, "batch": args.batch,
+           "aa_impl": cfg.vocoder.aa_impl,
            "wall_s": wall, "device_busy_s": busy, "busy_share": busy / wall,
            "groups": {k: {"s": v[0], "launches": v[1]}
                       for k, v in sorted(groups.items(),
@@ -112,7 +120,8 @@ def main(argv=None) -> int:
            "top_kernels": [{"name": k[:120], "s": v[0] / 1e6, "launches": v[1]}
                            for k, v in top]}
     print(card)
-    print(f"{args.seconds} s bucket, B={args.batch}: wall {wall:.4f} s, "
+    print(f"{args.seconds} s bucket, B={args.batch}, vocoder aa_impl "
+          f"{cfg.vocoder.aa_impl}: wall {wall:.4f} s, "
           f"device busy {busy:.4f} s ({100 * busy / wall:.1f}%)")
     for k, v in out["groups"].items():
         print(f"  {k:22s} {v['s']:.4f} s  {v['launches']:6d} launches")
@@ -121,7 +130,8 @@ def main(argv=None) -> int:
     if os.environ.get("DITTO_RECORD_DIR"):
         out_dir = Path(os.environ["DITTO_RECORD_DIR"])
         out_dir.mkdir(parents=True, exist_ok=True)
-        (out_dir / f"profile_serving_{args.seconds}s.json").write_text(
+        suffix = f"_{args.aa_impl}" if args.aa_impl else ""
+        (out_dir / f"profile_serving_{args.seconds}s{suffix}.json").write_text(
             json.dumps(out, indent=1))
     print(json.dumps({k: out[k] for k in ("wall_s", "device_busy_s",
                                           "busy_share")}))

@@ -1,7 +1,8 @@
 """The port's fused anti-aliased SnakeBeta -> conv (plain version, which
-kernel C is held to on the card) against the Pallas aa_snake_conv1d in
+kernel C is held to on the card) against the Pallas aa_snake_conv1d and
+its time-minor twin aa_snake_conv1d_ncl (with the residual epilogue) in
 interpret mode, over the WHOLE tensor, edges included: the port repeats
-the Pallas kernel's edge semantics (replicate-padded x, activation zeroed
+the Pallas kernels' edge semantics (replicate-padded x, activation zeroed
 outside [0, T)), so there is no loose edge band.
 
 Tolerances: fp32 5e-4 absolute and relative; bf16 operands 6e-2 (the
@@ -14,10 +15,12 @@ import jax.numpy as jnp
 import torch
 
 from ditto_tts_tpu.ops.act_conv_pallas import aa_snake_conv1d as jfused
+from ditto_tts_tpu.ops.act_conv_pallas import aa_snake_conv1d_ncl as jfused_ncl
 from ditto_tts_tpu.ops import snake as jsnake
 
 from ditto_tts_tpu_torch.ops import snake as tsnake
-from ditto_tts_tpu_torch.ops.act_conv import aa_snake_conv1d
+from ditto_tts_tpu_torch.ops.act_conv import aa_snake_conv1d, \
+    aa_snake_conv1d_ncl
 
 from _torch_port_util import assert_close, jx, tt
 
@@ -109,3 +112,89 @@ def test_polyphase_activation_matches_jax(beta):
     # and the composed up -> act -> down oracle
     want2 = jsnake.anti_aliased_activation(jx(x), jfn)
     assert_close(got, want2, rtol=1e-4, atol=1e-4)
+
+
+def _both_ncl(x, alpha, be, w, bv, dil, res, bf16=False, **kw):
+    """x [B, C, T] numpy; ``bf16``: bf16 operands, fp32 carry."""
+    def opt(v, f):
+        return None if v is None else f(v)
+
+    want = jfused_ncl(jx(x), jx(alpha), opt(be, jx), jx(w), opt(bv, jx),
+                      dilation=dil, residual=opt(res, jx), interpret=True,
+                      compute_dtype=jnp.bfloat16 if bf16 else None, **kw)
+    got = aa_snake_conv1d_ncl(tt(x), tt(alpha), opt(be, tt), tt(w),
+                              opt(bv, tt), dilation=dil,
+                              residual=opt(res, tt),
+                              compute_dtype=torch.bfloat16 if bf16 else None)
+    return got, want
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("beta", [True, False])
+@pytest.mark.parametrize("shape,k,dil", [((1, 8, 300), 3, 1),
+                                         ((2, 16, 600), 11, 5),
+                                         ((1, 24, 130), 7, 3)])
+def test_fused_act_conv_ncl_whole_tensor(shape, k, dil, beta, residual):
+    b, c, t = shape
+    x, alpha, be, w, bv = _case(b, t, c, c, k, seed=10, beta=beta)
+    res = np.random.default_rng(11).standard_normal(
+        (b, c, t)).astype(np.float32) if residual else None
+    got, want = _both_ncl(x.transpose(0, 2, 1).copy(), alpha, be, w, bv,
+                          dil, res, block_t=256)
+    assert got.shape == (b, c, t)
+    assert_close(got, want, rtol=5e-4, atol=5e-4)
+
+
+def test_fused_act_conv_ncl_bf16_compute_fp32_residual():
+    """fp32 carry, bf16 operands: the residual joins the fp32 sum, and the
+    output is rounded once, to fp32."""
+    x, alpha, be, w, bv = _case(2, 400, 8, 8, 7, seed=12)
+    res = np.random.default_rng(13).standard_normal(
+        (2, 8, 400)).astype(np.float32)
+    got, want = _both_ncl(x.transpose(0, 2, 1).copy(), alpha, be, w, bv, 3,
+                          res, bf16=True)
+    assert got.dtype == torch.float32
+    # a second rounding through bf16 would show at ~1e-2
+    assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_ncl_short_sequence_takes_the_unfused_form():
+    """T below the time-minor kernel's 128-rounded halo (K=11, dil=12):
+    both wrappers run polyphase + conv and add the residual after it."""
+    x, alpha, be, w, bv = _case(1, 100, 8, 8, 11, seed=14)
+    res = np.random.default_rng(15).standard_normal(
+        (1, 8, 100)).astype(np.float32)
+    got, want = _both_ncl(x.transpose(0, 2, 1).copy(), alpha, be, w, bv, 12,
+                          res)
+    assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_composed_and_gemm_activations_match_jax(bf16):
+    """The composed oracle and the banded-GEMM polyphase carry x's type
+    between their steps, as the JAX forms do (fp32 1e-5; bf16 2e-2, a few
+    bf16 ulps at |y| <= 4)."""
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 6, 300)).astype(np.float32)
+    alpha = (0.3 * rng.standard_normal(6)).astype(np.float32)
+    be = (0.3 * rng.standard_normal(6)).astype(np.float32)
+    xj = jx(x).astype(jnp.bfloat16) if bf16 else jx(x)
+    xt = tt(x).bfloat16() if bf16 else tt(x)
+    tol = 2e-2 if bf16 else 1e-5
+
+    def jfn(axis):
+        return lambda v: jsnake.snake_beta(v, jx(alpha), jx(be),
+                                           channel_axis=axis)
+
+    def tfn(v):
+        return tsnake.snake_beta(v, tt(alpha), tt(be))
+
+    got = tsnake.anti_aliased_activation(xt, tfn)
+    assert got.dtype == xt.dtype
+    assert_close(got, jsnake.anti_aliased_activation(xj, jfn(1)), rtol=tol,
+                 atol=tol)
+    got = tsnake.polyphase_anti_aliased_activation_gemm(xt, tfn)
+    assert got.dtype == xt.dtype
+    want = jsnake.polyphase_anti_aliased_activation_gemm(
+        xj.transpose(0, 2, 1), jfn(1)).transpose(0, 2, 1)
+    assert_close(got, want, rtol=tol, atol=tol)

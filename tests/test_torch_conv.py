@@ -1,7 +1,8 @@
 """The port's stride-1 conv (plain version, which kernel B is held to on
-the card) against the Pallas conv1d_nlc_pallas and conv1d_ncl_pallas
-(per-tap and windowed) in interpret mode, and the conv helpers of
-nn/conv.py against their JAX counterparts.
+the card) against the Pallas conv1d_nlc_pallas, conv1d_ncl_pallas
+(per-tap and windowed) and conv1d_ncl_batched_pallas (whole batch, and its
+gated cases) in interpret mode, and the conv helpers of nn/conv.py against
+their JAX counterparts.
 
 Tolerances: fp32 2e-5 (another tap summation order); bf16 operands 2e-2
 (results rounded to bf16 in both)."""
@@ -13,11 +14,11 @@ import jax.numpy as jnp
 import torch
 
 from ditto_tts_tpu.nn import conv as jconv
-from ditto_tts_tpu.ops.conv_pallas import conv1d_ncl_pallas, \
-    conv1d_nlc_pallas
+from ditto_tts_tpu.ops.conv_pallas import conv1d_ncl_batched_pallas, \
+    conv1d_ncl_pallas, conv1d_nlc_pallas
 
 from ditto_tts_tpu_torch.nn import conv as tconv
-from ditto_tts_tpu_torch.ops.conv import conv1d
+from ditto_tts_tpu_torch.ops.conv import conv1d, conv1d_ncl_batched
 
 from _torch_port_util import assert_close, jx, tt
 
@@ -114,3 +115,29 @@ def test_pad1d_and_extra_padding():
     for args in ((100, 7, 1, 6), (240, 8, 4, 4), (13, 10, 5, 5)):
         assert tconv._extra_padding_for_conv1d(*args) == \
             jconv._extra_padding_for_conv1d(*args)
+
+
+@pytest.mark.parametrize("b,c,t,o,k,dil", [
+    (4, 8, 300, 8, 3, 1), (8, 16, 290, 16, 3, 2),
+    (1, 16, 300, 16, 3, 1),          # B=1: the per-batch Pallas kernel
+    (2, 5, 200, 3, 7, 1),            # B*C not a multiple of 8: the same
+    (4, 8, 200, 8, 3, 70)])          # T' below the two-block halo
+def test_conv1d_ncl_batched_matches_pallas(b, c, t, o, k, dil):
+    x, w, bv = _case(b, c, t, o, k, seed=6)
+    want = conv1d_ncl_batched_pallas(jx(x), jx(w), jx(bv), dilation=dil,
+                                     interpret=True, block_t=256)
+    got = conv1d_ncl_batched(tt(x), tt(w), tt(bv), dilation=dil)
+    assert got.shape == want.shape
+    assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("t,dil", [(300, 1), (200, 70)])
+def test_conv1d_ncl_batched_types(t, dil):
+    """bf16 x, fp32 w, no compute type: the operands promote to fp32; the
+    result has x's type, but the short-T fallback returns fp32."""
+    x, w, bv = _case(4, 8, t, 8, 3, seed=7)
+    want = conv1d_ncl_batched_pallas(jx(x).astype(jnp.bfloat16), jx(w),
+                                     jx(bv), dilation=dil, interpret=True)
+    got = conv1d_ncl_batched(tt(x).bfloat16(), tt(w), tt(bv), dilation=dil)
+    assert str(got.dtype) == f"torch.{want.dtype}"
+    assert_close(got, want, rtol=1e-2, atol=1e-2)

@@ -1,7 +1,9 @@
-"""Kernels A, B and C against their plain versions on the card, at small
-and ragged shapes the serving path does not reach (causal and kv-length
-masks, D=128, strided q/k/v, odd channel counts, tails shorter than a
-tile). Every test skips without a CUDA card (the ``gen`` fixture decides,
+"""Kernels A, B, C and D against their plain versions on the card, at
+small and ragged shapes the serving path does not reach (causal and
+kv-length masks, D=128, strided q/k/v, odd channel counts, tails shorter
+than a tile, T shorter than the activation's 8-sample halo, kernel C's
+residual and output type, kernel D on [B, C, T], [B, T, C] and strided
+views). Every test skips without a CUDA card (the ``gen`` fixture decides,
 at run time). On the card, where JAX is absent and tests/conftest.py
 cannot load:
 
@@ -18,7 +20,10 @@ from ditto_tts_tpu_torch import kernels
 from ditto_tts_tpu_torch.ops.act_conv import (aa_snake_conv1d_cuda,
                                               aa_snake_conv1d_plain)
 from ditto_tts_tpu_torch.ops.attention import attention_cuda, attention_plain
-from ditto_tts_tpu_torch.ops.conv import conv1d_cuda, conv1d_plain
+from ditto_tts_tpu_torch.ops.conv import (conv1d_cuda, conv1d_ncl_batched,
+                                          conv1d_plain)
+from ditto_tts_tpu_torch.ops.snake_fused import (fused_snake_cuda,
+                                                 fused_snake_plain)
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 DTYPES = [torch.float32, torch.bfloat16]
@@ -83,6 +88,61 @@ def test_act_conv_kernel(gen, dtype, b, c, t, o, k, dil):
                dtype)
 
 
+@pytest.mark.parametrize("ydtype", DTYPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,c,t,o,k,dil", [
+    (1, 8, 40, 8, 3, 1), (2, 24, 301, 24, 7, 3), (1, 48, 600, 48, 11, 5),
+    (1, 5, 9, 3, 11, 5)])
+def test_act_conv_kernel_residual(gen, dtype, ydtype, b, c, t, o, k, dil):
+    x = _rn(gen, b, c, t, dtype=dtype, scale=2.0)
+    a = torch.exp(_rn(gen, c, scale=0.3))
+    inv_b = 1.0 / (torch.exp(_rn(gen, c, scale=0.3)) + 1e-9)
+    w = _rn(gen, o, c, k, dtype=dtype, scale=(c * k) ** -0.5)
+    bias = _rn(gen, o)
+    for res in (None, _rn(gen, b, o, t, dtype=ydtype)):
+        got = aa_snake_conv1d_cuda(x, a, inv_b, w, bias, dilation=dil,
+                                   residual=res, out_dtype=ydtype)
+        assert got.dtype == ydtype
+        _check(got, aa_snake_conv1d_plain(x, a, inv_b, w, bias, dilation=dil,
+                                          residual=res, out_dtype=ydtype),
+               torch.bfloat16 if torch.bfloat16 in (dtype, ydtype)
+               else torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("up_x", [True, False])
+@pytest.mark.parametrize("b,c,t,view", [
+    (1, 3, 5, "bct"), (2, 7, 513, "bct"), (1, 1, 1, "bct"),
+    (1, 33, 130, "btc"), (2, 40, 7, "btc"), (3, 70, 1000, "strided")])
+def test_snake_kernel(gen, dtype, up_x, b, c, t, view):
+    if view == "bct":
+        x = _rn(gen, b, c, t, dtype=dtype, scale=2.0)
+    elif view == "btc":            # a [B, T, C] tensor seen as [B, C, T]
+        x = _rn(gen, b, t, c, dtype=dtype, scale=2.0).transpose(1, 2)
+    else:                          # every other sample of a longer signal
+        x = _rn(gen, b, c, 2 * t, dtype=dtype, scale=2.0)[..., ::2]
+    a = torch.exp(_rn(gen, c, scale=0.3))
+    inv_b = 1.0 / (torch.exp(_rn(gen, c, scale=0.3)) + 1e-9)
+    before = kernels.launches["snake"]
+    got = fused_snake_cuda(x, a, inv_b, up_in_x_dtype=up_x)
+    assert kernels.launches["snake"] == before + 1
+    if view == "btc":
+        assert got.stride() == x.stride()
+    _check(got, fused_snake_plain(x, a, inv_b, up_in_x_dtype=up_x), dtype)
+
+
+@pytest.mark.parametrize("b,c,t,o,k,dil", [(8, 32, 3000, 32, 3, 1),
+                                           (1, 16, 500, 16, 3, 2)])
+def test_conv1d_ncl_batched_launches_kernel_b(gen, b, c, t, o, k, dil):
+    x = _rn(gen, b, c, t)
+    w = _rn(gen, o, c, k, scale=(c * k) ** -0.5)
+    bias = _rn(gen, o)
+    before = kernels.launches["conv1d"]
+    got = conv1d_ncl_batched(x, w, bias, dilation=dil)
+    assert kernels.launches["conv1d"] == before + 1
+    _check(got, conv1d_plain(x, w, bias, dilation=dil), torch.float32)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     q = _rn(gen, 1, 2, 8, 32)
     with pytest.raises(ValueError, match="head_dim"):
@@ -95,3 +155,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="odd"):
         aa_snake_conv1d_cuda(x, torch.ones(4, device="cuda"),
                              torch.ones(4, device="cuda"), _rn(gen, 4, 4, 4))
+    with pytest.raises(TypeError):
+        fused_snake_cuda(x.half(), torch.ones(4, device="cuda"),
+                         torch.ones(4, device="cuda"), up_in_x_dtype=True)
+    with pytest.raises(ValueError, match="residual"):
+        aa_snake_conv1d_cuda(x, torch.ones(4, device="cuda"),
+                             torch.ones(4, device="cuda"), _rn(gen, 4, 4, 3),
+                             residual=_rn(gen, 1, 4, 39))

@@ -1,18 +1,23 @@
 """The port's whole serving chain against the JAX build_synthesize_recorded
 at the tiny configs of tests/test_pipeline.py, with shared numpy noise and
-every intermediate compared; and the port's serving entry point against
-its own recorded form.
+every intermediate compared (also with the vocoder under
+``aa_impl="fused_pallas"``, whose activations are kernel D's); and the
+port's serving entry point against its own recorded form.
 
 Tolerances: encoder latents, codes and VQ indices exactly; the DiT chain
 1e-4 relative to the latents' scale (4 reverse steps amplify fp32
 round-off by up to 1/sqrt(alpha_t)); codec waveform, mel and the fp32
 vocoder 1e-4; the default bf16 vocoder 5e-2."""
 
+import functools
+
 import numpy as np
 import pytest
 
 import jax
 import torch
+
+from ditto_tts_tpu.ops import snake_pallas as jsp
 
 from ditto_tts_tpu.infer.generator import \
     build_synthesize_recorded as jax_recorded
@@ -25,6 +30,10 @@ from _torch_port_util import (CFG, jax_generator_params, jx, np_of,
 
 FP32_VOC = CFG.replace(vocoder=CFG.vocoder.replace(
     compute_dtype="float32", carry_dtype="float32"))
+# every stage of the tiny vocoder is NCL-hybrid, so its AMP activations run
+# fused_snake_pallas (the port's kernel D)
+FUSED_SNAKE = FP32_VOC.replace(vocoder=FP32_VOC.vocoder.replace(
+    aa_impl="fused_pallas"))
 B, L = 2, 256
 T, H = L // CFG.codec.hop_length, CFG.dit.hidden_dim
 
@@ -67,9 +76,14 @@ def _compare(ji, ti, jw, tw, voc_tol):
     (FP32_VOC, False, False, 1e-4),
     (FP32_VOC, True, True, 1e-4),
     (CFG, False, False, 5e-2),
-], ids=["fp32", "ref_compat_cond_by_audio", "bf16_vocoder"])
-def test_recorded_chain_matches_jax(params, cfg, ref_compat, cond_by_audio,
-                                    voc_tol):
+    (FUSED_SNAKE, False, False, 1e-4),
+], ids=["fp32", "ref_compat_cond_by_audio", "bf16_vocoder",
+        "fused_pallas_vocoder"])
+def test_recorded_chain_matches_jax(params, monkeypatch, cfg, ref_compat,
+                                    cond_by_audio, voc_tol):
+    # the JAX vocoder calls fused_snake_pallas without interpret mode
+    monkeypatch.setattr(jsp, "fused_snake_pallas", functools.partial(
+        jsp.fused_snake_pallas, interpret=True))
     jp, tp = params
     audio, mask, text, (pn, init, steps) = _inputs(0)
     jfn = jax.jit(jax_recorded(cfg, ref_compat=ref_compat,
