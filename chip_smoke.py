@@ -6,13 +6,19 @@
 Phases (any failure exits non-zero and prints no result line):
   1. device   the card's name and power limit (nvidia-smi), torch / CUDA
   2. build    nvcc builds kernels A, B, C, D from ditto_tts_tpu_torch/csrc/
-              (one nvcc per source, all at once)
+              (one nvcc per source, all at once); each kernel's registers
+              and spills (ptxas) and tensor-core instructions (cuobjdump
+              -sass), which must be in every bf16 kernel of A and B
+              (*_kernel_tc) and in none of their fp32 kernels
   3. kernels  each kernel against its plain PyTorch version at the paths'
-              shapes, bf16 and fp32, with the stated tolerance (A; B, also
-              as the whole-batch conv #4 and its B=1 gate; C, also with the
+              shapes, bf16 and fp32, with the stated tolerance (A at the
+              DiT's four shapes; B at every bf16 shape class of the vocoder
+              (kernel_bench.CONV_SHAPES), the SEANet shapes, and as the
+              whole-batch conv #4 and its B=1 gate; C, also with the
               residual epilogue at widths 48 / 24; D in both modes, on
-              [B, C, T] and [B, T, C], with a ragged T and T < 8);
-              kernel / plain / library times (CUDA events) and the bound
+              [B, C, T] and [B, T, C], with a ragged T and T < 8); kernel
+              and library times (device ms of a replayed CUDA graph), the
+              plain version's, and the bound
   4. serving  the full-width chain of bench.py (12-layer 768-wide DiT,
               50 DDPM steps, EnCodec 1.5 kbps, BigVGAN v2 24 kHz) through
               build_synthesize_pipelined: the 10 s bucket at B=4 (warm-up,
@@ -20,7 +26,7 @@ Phases (any failure exits non-zero and prints no result line):
               seed that must be bitwise equal) and the 20 s bucket at B=4;
               launches of every kernel, read over this phase, must be
               exactly those of the default path (per request A 1200, B 90,
-              C 54, D 0)
+              C 54, D 0); the shapes of A's and B's calls in one request
   5. parity   full width, 1 s prompt, B=1, fp32 with TF32 off, all 50
               steps (respaced to 4 steps, the first step's beta rounds to
               1.0 in fp32 and the update divides by zero, in JAX too):
@@ -28,7 +34,8 @@ Phases (any failure exits non-zero and prints no result line):
               card and on the CPU (plain versions); refined latents, VQ
               index agreement, and the CPU's indices decoded on the card
   6. the vocoder under aa_impl="fused_pallas": the 10 s bucket at B=4
-     (warm-up and two timed requests; per request D 108, C 0), the vocoder
+     (warm-up and two timed requests; per request D 108, C 0; the shapes of
+     A's and B's calls in one request), the vocoder
      stage on phase 4's mel under both settings in turns, and the
      full-width vocoder at B=1, fp32, on the card against the CPU (max
      |err| <= 1e-3)
@@ -54,9 +61,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PEAK_BF16 = 989e12        # H100 SXM dense bf16 tensor-core FLOP/s
-PEAK_FP32 = 67e12         # H100 SXM fp32 FLOP/s outside the tensor cores
-PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bytes/s
 TOL = {"float32": 2e-5, "bfloat16": 1e-2}   # max |err| / max |plain|
 
 
@@ -73,25 +77,13 @@ def log(msg: str) -> None:
 # helpers
 # --------------------------------------------------------------------------
 
-def cuda_ms(fn, iters: int) -> float:
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(iters):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / iters
-
-
 def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
+    """kernel_bench.bound_ms at the peak of the operands' type (the H100's
+    bf16 tensor-core rate, or its fp32 rate outside the tensor cores)."""
     import torch
-    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32
-    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    from ditto_tts_tpu_torch import kernel_bench as kb
+    return kb.bound_ms(flops, nbytes, kb.PEAK_BF16 if dtype == torch.bfloat16
+                       else kb.PEAK_FP32)
 
 
 def nbytes(*tensors) -> int:
@@ -104,6 +96,50 @@ FUSED_PALLAS_PATH = {"attention": 1200, "conv1d": 90 + 54, "act_conv": 0,
                      "snake": 108}
 # BigVGAN's last two stages under aa_impl="fused_ncl", one forward
 FUSED_NCL_PATH = {"attention": 0, "conv1d": 4, "act_conv": 36, "snake": 0}
+
+
+class ShapeLog:
+    """Counts the calls of kernels A and B by shape while it is entered:
+    it wraps the wrappers (``attention_cuda``, ``conv1d_cuda``), which the
+    dispatching functions look up at call time, and restores them after."""
+
+    def __enter__(self):
+        from ditto_tts_tpu_torch.ops import attention as A, conv as B
+        self.mods = (A, B)
+        self.saved = (A.attention_cuda, B.conv1d_cuda)
+        self.counts = counts = {}
+        attn, conv = self.saved
+
+        def logged_attn(q, k, v, *, causal=False, sm_scale=None,
+                        kv_len=None):
+            key = (f"attention {str(q.dtype)[6:]} B{q.shape[0]} "
+                   f"H{q.shape[1]} Sq{q.shape[2]} Sk{k.shape[2]} "
+                   f"D{q.shape[3]} causal={causal} kv_len={kv_len}")
+            counts[key] = counts.get(key, 0) + 1
+            return attn(q, k, v, causal=causal, sm_scale=sm_scale,
+                        kv_len=kv_len)
+
+        def logged_conv(x, weight, bias=None, *, dilation=1):
+            b, c, t = x.shape
+            o, _, k = weight.shape
+            key = (f"conv1d {str(x.dtype)[6:]} B{b} C{c} O{o} K{k} "
+                   f"dil{dilation} T{t - (k - 1) * dilation}")
+            counts[key] = counts.get(key, 0) + 1
+            return conv(x, weight, bias, dilation=dilation)
+
+        A.attention_cuda, B.conv1d_cuda = logged_attn, logged_conv
+        return self
+
+    def __exit__(self, *exc):
+        A, B = self.mods
+        A.attention_cuda, B.conv1d_cuda = self.saved
+
+    def report(self, label: str) -> dict:
+        log(f"  shapes of kernels A and B in one {label} request "
+            f"({sum(self.counts.values())} calls):")
+        for key, n in sorted(self.counts.items()):
+            log(f"    {n:4d} x {key}")
+        return dict(self.counts)
 
 
 def check_launches(path: str, launches: dict, per_request: dict, n: int):
@@ -145,6 +181,8 @@ def kernel_phase(torch, rec):
     import torch.nn.functional as F
     from ditto_tts_tpu_torch.ops.act_conv import (aa_snake_conv1d_cuda,
                                                   aa_snake_conv1d_plain)
+    from ditto_tts_tpu_torch.kernel_bench import (cuda_ms, eager_ms,
+                                                  run_attention, run_conv)
     from ditto_tts_tpu_torch.ops.attention import (attention_cuda,
                                                    attention_plain)
     from ditto_tts_tpu_torch.ops.conv import (conv1d_cuda, conv1d_ncl_batched,
@@ -163,13 +201,14 @@ def kernel_phase(torch, rec):
         return (scale * torch.randn(*shape, generator=gen,
                                     device=dev)).to(dtype)
 
-    def timed(shape, err, fn, plain, flops, nb, op_dtype, library=None,
-              iters=10):
+    def timed(shape, err, fn, plain, flops, nb, op_dtype, library=None):
+        # kernel and library: device ms from a replayed CUDA graph; the
+        # plain version (which copies host tables) in eager calls
         b, by = bound_ms(flops, nb, op_dtype)
-        return {"shape": shape, "max_abs_err": err, "ms": cuda_ms(fn, iters),
-                "plain_ms": cuda_ms(plain, 3),
+        return {"shape": shape, "max_abs_err": err, "ms": cuda_ms(torch, fn),
+                "plain_ms": eager_ms(torch, plain, 10.0),
                 "library_ms": None if library is None
-                else cuda_ms(library, iters),
+                else cuda_ms(torch, library),
                 "bound_ms": b, "bound_by": by}
 
     dtypes = (torch.bfloat16, torch.float32)
@@ -190,7 +229,12 @@ def kernel_phase(torch, rec):
                     lambda: attention_cuda(q, k, v),
                     lambda: attention_plain(q, k, v),
                     4.0 * 4 * 12 * sq * sk * 64, nbytes(q, k, v, got), dt,
-                    lambda: F.scaled_dot_product_attention(q, k, v), 50)
+                    lambda: F.scaled_dot_product_attention(q, k, v))
+
+    # ---- A at the four shapes of the DiT's calls, beside SDPA ----
+    rec["attention_shapes"] = run_attention(
+        torch, gen, lambda label, got, want: checks.compare(
+            "attention", f"bf16 {label}", got, want, "bfloat16"))
 
     # ---- B: conv1d at SEANet and vocoder shapes ----
     conv_cases = [   # (label, B, C, T_out, O, K, dil, dtype)
@@ -219,6 +263,11 @@ def kernel_phase(torch, rec):
                     lambda: conv1d_plain(x, w, bias, dilation=dil),
                     2.0 * b_ * o * c * k * t_out, nbytes(x, w, bias, got), dt,
                     lambda: F.conv1d(x, w, bias.to(dt), dilation=dil))
+
+    # ---- B at every bf16 shape class of the vocoder, beside F.conv1d ----
+    rec["conv_shapes"] = run_conv(
+        torch, gen, lambda label, got, want: checks.compare(
+            "conv1d", f"bf16 {label}", got, want, "bfloat16"))
 
     # ---- B as #4: the whole-batch time-minor conv (codec geometry) and
     # its B=1 gate ----
@@ -338,7 +387,7 @@ def kernel_phase(torch, rec):
                             lambda: fused_snake_plain(
                                 x, a, inv_b, up_in_x_dtype=up_x),
                             55.0 * x.numel(), nbytes(x, got, a, inv_b),
-                            torch.float32, iters=20)
+                            torch.float32)
     entries["snake"] = sites["#9 C384"]
     if checks.bad:
         fail("kernel parity: " + "; ".join(checks.bad))
@@ -347,6 +396,12 @@ def kernel_phase(torch, rec):
         log(f"  {name} at {e['shape']}: kernel {e['ms']:.4f} ms, plain "
             f"{e['plain_ms']:.4f} ms, library {lib} ms, bound "
             f"{e['bound_ms']:.4f} ms ({e['bound_by']})")
+    for kind in ("attention_shapes", "conv_shapes"):
+        for r in rec[kind]:
+            log(f"  {kind.split('_')[0]:9s} {r['shape']}: kernel "
+                f"{r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s), library "
+                f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']})")
     rec["kernel_entries"] = entries
     rec["kernel_sites"] = sites
     return entries
@@ -394,7 +449,10 @@ def serving_phase(torch, np, cfg, params, rec):
     check(wav0, "10s warm-up")
     times = []
     for seed in (7, 8, 9):
-        wav, dt = run(inputs, seed)
+        with ShapeLog() as shapes:
+            wav, dt = run(inputs, seed)
+        if seed == 8:
+            shape_log = shapes.report("default 10 s")
         check(wav, f"10s seed {seed}")
         times.append(dt)
         if seed == 7 and not torch.equal(wav, wav0):
@@ -408,6 +466,7 @@ def serving_phase(torch, np, cfg, params, rec):
     # output_audio_s_per_s the waveform's (the 20 s bucket's latents are
     # cut to max_token_length frames, 13.65 s)
     out["10s"] = {"batch": 4, "warmup_s": warm, "request_s": times,
+                  "shapes": shape_log,
                   "audio_s_per_s": 4 * 10 / min(times),
                   "output_audio_s_per_s": wav0.numel() / 24000 / min(times),
                   "waveform_shape": list(wav0.shape)}
@@ -511,8 +570,11 @@ def fused_pallas_phase(torch, cfg, params, params_cpu, inputs, mel, rec):
     kernels.reset_launches()
     times = []
     for seed in (7, 7, 8):       # warm-up, then two timed requests
-        wav, dt = sync_time(torch, serve, params, *inputs,
-                            torch.Generator(device=dev).manual_seed(seed))
+        with ShapeLog() as shapes:
+            wav, dt = sync_time(torch, serve, params, *inputs,
+                                torch.Generator(device=dev).manual_seed(seed))
+        if seed == 8:
+            shape_log = shapes.report("fused_pallas 10 s")
         check_wave(torch, wav, f"fused_pallas seed {seed}")
         times.append(dt)
     launches = dict(kernels.launches)
@@ -523,6 +585,7 @@ def fused_pallas_phase(torch, cfg, params, params_cpu, inputs, mel, rec):
     check_launches("fused_pallas serving path", launches, FUSED_PALLAS_PATH,
                    3)
     out["10s"] = {"batch": 4, "warmup_s": times[0], "request_s": times[1:],
+                  "shapes": shape_log,
                   "audio_s_per_s": 4 * 10 / min(times[1:]),
                   "launches_3_requests": launches}
 
@@ -749,10 +812,26 @@ def main() -> None:
     log("== 2. build")
     build_s = kernels.build()
     log(f"  nvcc build of {', '.join(kernels.KERNELS)}: {build_s:.2f} s")
-    for name, text in kernels.build_log.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  [{name}] {line.strip()}")
+    rec["ptxas"], rec["sass_mma"] = {}, {}
+    for name in kernels.KERNELS:
+        rec["ptxas"][name] = kernels.ptxas_report(name)
+        mma = rec["sass_mma"][name] = kernels.sass_mma_counts(name)
+        for fn, regs, st, ld in rec["ptxas"][name]:
+            n_mma = "n/a" if mma is None else mma.get(fn, "?")
+            log(f"  [{name}] {fn[:110]}: {regs} registers, spill stores "
+                f"{st} B, spill loads {ld} B, HMMA/HGMMA in SASS {n_mma}")
+    # A and B: the bf16 kernels (*_tc) run on the tensor cores, the fp32
+    # ones (exact fp32, TF32 would break the fp32 tolerance) do not
+    for name in ("attention", "conv1d"):
+        mma = rec["sass_mma"][name]
+        if mma is None:
+            log(f"  [{name}] no cuobjdump: tensor-core count not measured")
+            continue
+        tc = {fn: n for fn, n in mma.items() if "kernel_tc" in fn}
+        if not tc or not all(tc.values()) or any(
+                n for fn, n in mma.items() if fn not in tc):
+            fail(f"{name}: tensor-core instructions in the wrong kernels: "
+                 f"{mma}")
     rec["build_s"] = build_s
 
     log("== 3. kernel parity on the card (tolerance: max|err| <= tol x "

@@ -39,7 +39,6 @@ launches: Dict[str, int] = {name: 0 for name in KERNELS}
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[str, ctypes._CFuncPtr] = {}
-build_log: Dict[str, str] = {}
 
 
 def reset_launches() -> None:
@@ -86,11 +85,11 @@ def build() -> float:
         failed = []
         for name, (proc, tmp, out) in procs.items():
             log, _ = proc.communicate()
-            build_log[name] = log
             if proc.returncode != 0:
                 failed.append(f"--- {name} (rc {proc.returncode})\n{log}")
             else:
                 os.replace(tmp, out)
+                out.with_suffix(".log").write_text(log)   # ptxas -v
         if failed:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0
@@ -113,6 +112,58 @@ def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
         fn.restype = ctypes.c_int
         _fns[symbol] = fn
     return fn
+
+
+def _demangle(names):
+    """Readable kernel names (``c++filt`` where the toolkit's host has it,
+    else the mangled names)."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, check=True)
+        return out.stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        return list(names)
+
+
+def ptxas_report(name: str):
+    """(kernel, registers, spill store bytes, spill load bytes) of every
+    entry function of kernel ``name``, from the ``ptxas -v`` output that
+    ``build`` keeps beside the library (none for a library built without
+    it)."""
+    log = _lib_path(name).with_suffix(".log")
+    rows, fn, spill = [], None, (0, 0)
+    for line in (log.read_text() if log.exists() else "").splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif "bytes spill stores" in line:
+            parts = [p.split() for p in line.split(",")]
+            spill = (int(parts[1][0]), int(parts[2][0]))
+        elif "Used" in line and "registers" in line and fn is not None:
+            regs = int(line.split("Used")[1].split()[0])
+            rows.append([fn, regs, *spill])
+            fn, spill = None, (0, 0)
+    for row, pretty in zip(rows, _demangle([r[0] for r in rows])):
+        row[0] = pretty
+    return [tuple(r) for r in rows]
+
+
+def sass_mma_counts(name: str):
+    """{kernel: number of tensor-core instructions (HMMA / HGMMA)} in the
+    SASS of kernel ``name``'s library, by ``cuobjdump -sass``; None where
+    the toolkit has no cuobjdump."""
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(_lib_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[fn] += 1
+    return dict(zip(_demangle(list(counts)), counts.values()))
 
 
 def stream_ptr(t: torch.Tensor) -> int:

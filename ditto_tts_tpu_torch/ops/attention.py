@@ -4,8 +4,10 @@
 (explicit fp32-softmax math, the counterpart of the JAX package's
 ``sdpa_reference``); a CUDA tensor launches kernel A
 (``csrc/attention.cu``, the port of the Pallas ``pallas_attention`` and
-``pallas_attention_packed``) or raises. There is no length switch: on the
-card every call, self or cross, at every length, is the kernel.
+``pallas_attention_packed``: flash attention on the tensor cores in bf16,
+exact fp32 on the CUDA cores in fp32) or raises. There is no length
+switch: on the card every call, self or cross, at every length, is the
+kernel.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ def attention_plain(q, k, v, *, causal: bool = False,
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)] \
     + [ctypes.c_int] * 7 \
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def attention_cuda(q, k, v, *, causal: bool = False,
@@ -53,8 +55,16 @@ def attention_cuda(q, k, v, *, causal: bool = False,
                    kv_len: Optional[int] = None):
     """Kernel A. q [B, H, Sq, D], k/v [B, H, Sk, D] on one CUDA device,
     fp32 or bf16, D in {64, 128}, any strides over (b, h, s) with a unit
-    stride over d. Returns [B, H, Sq, D] as a view of a [B, Sq, H, D]
-    buffer, so merging heads after it is free."""
+    stride over d; in bf16 (the tensor-core kernel, fed by 16-byte
+    asynchronous copies) every operand 16-byte aligned with (b, h, s)
+    strides that are multiples of 8. Returns [B, H, Sq, D] as a view of a
+    [B, Sq, H, D] buffer, so merging heads after it is free."""
+    return _attention_launch(q, k, v, causal, sm_scale, kv_len, warps=0)
+
+
+def _attention_launch(q, k, v, causal, sm_scale, kv_len, *, warps: int):
+    """``attention_cuda`` with the bf16 kernel's warps per block chosen (4
+    or 8; 0 is the default), for measuring the block size."""
     kernels.require_cuda("attention", q, k, v)
     if q.dtype not in kernels.DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
@@ -71,6 +81,11 @@ def attention_cuda(q, k, v, *, causal: bool = False,
         raise ValueError(f"attention: head_dim {d} not in (64, 128)")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("attention: the head dim must have unit stride")
+    if q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3])
+            for t in (q, k, v)):
+        raise ValueError("attention: bf16 operands must be 16-byte aligned "
+                         "with (b, h, s) strides that are multiples of 8")
     kvl = sk if kv_len is None else int(kv_len)
     if not 1 <= kvl <= sk:
         raise ValueError(f"attention: kv_len {kvl} outside [1, {sk}]")
@@ -82,7 +97,7 @@ def attention_cuda(q, k, v, *, causal: bool = False,
     fn = kernels.function("attention", "ditto_attention", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), strides,
              b, h, sq, sk, d, kvl, int(causal), scale,
-             kernels.DTYPE_CODES[q.dtype], kernels.stream_ptr(q))
+             kernels.DTYPE_CODES[q.dtype], warps, kernels.stream_ptr(q))
     kernels.check(err, "attention")
     kernels.launches["attention"] += 1
     return o

@@ -4,7 +4,8 @@
 codec and of BigVGAN. A CPU tensor takes ``conv1d_plain`` (an explicit
 K-tap sum of fp32 products); a CUDA tensor launches kernel B
 (``csrc/conv1d.cu``, the port of the Pallas ``conv1d_nlc_pallas`` and
-``conv1d_ncl_pallas``) or raises.
+``conv1d_ncl_pallas``: a tap-sum implicit GEMM on the tensor cores in bf16,
+exact fp32 on the CUDA cores in fp32) or raises.
 
 Dtype contract (the JAX package's ``nn/conv.py``): both operands are cast
 to ``compute_dtype`` (default: x's type), products sum in fp32, the fp32
@@ -38,13 +39,22 @@ def conv1d_plain(x, weight, bias=None, *, dilation: int = 1):
     return acc.to(x.dtype)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES_F32 = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES_BF16 = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+N_TILES = 3     # the bf16 kernel's tile configurations (csrc/conv1d.cu)
 
 
 def conv1d_cuda(x, weight, bias=None, *, dilation: int = 1):
     """Kernel B. x [B, C, T] and w [O, C, K] contiguous, of one type (fp32
     or bf16), K <= 11; bias [O] fp32 or None. Returns [B, O, T-(K-1)*dil]
-    in x's type."""
+    in x's type. bf16 runs the tensor-core kernel (after a reorder of the
+    weights to [K, O, C] inside the same call), fp32 the CUDA-core one."""
+    return _conv1d_launch(x, weight, bias, dilation, tile=-1)
+
+
+def _conv1d_launch(x, weight, bias, dilation: int, *, tile: int):
+    """``conv1d_cuda`` with the bf16 kernel's tile configuration chosen
+    (0..N_TILES-1; -1 picks it from O), for measuring the tiles."""
     tensors = (x, weight) if bias is None else (x, weight, bias)
     kernels.require_cuda("conv1d", *tensors)
     if x.dtype not in kernels.DTYPE_CODES or weight.dtype != x.dtype:
@@ -66,11 +76,22 @@ def conv1d_cuda(x, weight, bias=None, *, dilation: int = 1):
                              or not bias.is_contiguous()):
         raise ValueError("conv1d: bias must be a contiguous fp32 [O] tensor")
     y = torch.empty((b, o, t_out), dtype=x.dtype, device=x.device)
-    fn = kernels.function("conv1d", "ditto_conv1d", _ARGTYPES)
-    err = fn(x.data_ptr(), weight.data_ptr(),
-             None if bias is None else bias.data_ptr(), y.data_ptr(),
-             b, c, t_in, o, k, dilation, kernels.DTYPE_CODES[x.dtype],
-             kernels.stream_ptr(x))
+    bias_ptr = None if bias is None else bias.data_ptr()
+    if x.dtype == torch.bfloat16:
+        # scratch for the weights reordered to [K, O, C padded to 8], which
+        # the kernel indexes with 32-bit ints
+        cp = -(-c // 8) * 8
+        if k * o * cp >= 2 ** 31:
+            raise ValueError(f"conv1d: weight {tuple(weight.shape)} too large")
+        wr = torch.empty((k, o, cp), dtype=x.dtype, device=x.device)
+        fn = kernels.function("conv1d", "ditto_conv1d_bf16", _ARGTYPES_BF16)
+        err = fn(x.data_ptr(), weight.data_ptr(), wr.data_ptr(), bias_ptr,
+                 y.data_ptr(), b, c, t_in, o, k, dilation, tile,
+                 kernels.stream_ptr(x))
+    else:
+        fn = kernels.function("conv1d", "ditto_conv1d_f32", _ARGTYPES_F32)
+        err = fn(x.data_ptr(), weight.data_ptr(), bias_ptr, y.data_ptr(),
+                 b, c, t_in, o, k, dilation, kernels.stream_ptr(x))
     kernels.check(err, "conv1d")
     kernels.launches["conv1d"] += 1
     return y

@@ -9,8 +9,9 @@ the vocoder under that ``aa_impl``) with random weights (numpy seed 0),
 warms up once, then profiles one request. Prints the card
 (name and power limit), the request's wall seconds, the summed device
 kernel time and its share of the wall time (the device's busy share), and
-the kernels in groups (the port's kernels A/B/C/D, GEMMs, the codec LSTM,
-other library kernels) and by name; with DITTO_RECORD_DIR set, writes
+the kernels in groups (the port's kernels A/B/C/D, the reorder of B's bf16
+weights that each bf16 call of B runs first, GEMMs, the codec LSTM, other
+library kernels) and by name; with DITTO_RECORD_DIR set, writes
 the same as JSON to $DITTO_RECORD_DIR/profile_serving_<seconds>s[_<aa_impl>].json.
 Needs one CUDA card.
 """
@@ -26,11 +27,12 @@ import time
 from pathlib import Path
 
 GROUPS = (   # (group, substrings of a kernel name), first match wins
-    ("A attention", ("attn_kernel",)),
-    ("B conv1d", ("conv1d_kernel",)),
+    ("A attention", ("attn_kernel",)),          # attn_kernel, _tc
+    ("B conv1d", ("conv1d_kernel",)),           # conv1d_kernel, _tc
+    ("B weight reorder", ("conv1d_weight_reorder",)),
     ("C act_conv", ("act_conv_kernel",)),
     ("D snake", ("snake_kernel",)),
-    ("gemm", ("gemm", "xmma", "cutlass", "cublas", "sm90_")),
+    ("gemm", ("gemm", "xmma", "cutlass", "cublas", "sm90_", "nvjet")),
     ("lstm", ("LSTM", "lstm", "RNN", "rnn")),
     ("conv (cuDNN)", ("conv", "Conv", "implicit", "cudnn")),
 )

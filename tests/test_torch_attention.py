@@ -31,6 +31,7 @@ def _qkv(b, h, sq, sk, d, seed=0):
     (2, 4, 40, 40, 64),     # DiT self-attention shape class (packed heads)
     (1, 2, 37, 12, 64),     # cross-attention to a short text
     (1, 2, 24, 50, 128),    # D=128: one head per lane block
+    (1, 2, 65, 64, 64),     # one query row past a 64-row tile, one key tile
 ])
 def test_attention_matches_pallas_packed(b, h, sq, sk, d):
     q, k, v = _qkv(b, h, sq, sk, d)
@@ -61,6 +62,19 @@ def test_attention_kv_length_padding():
     kp = np.pad(k, pad, constant_values=7.0)
     vp = np.pad(v, pad, constant_values=-3.0)
     got = attention(tt(q), tt(kp), tt(vp), kv_len=21)
+    assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("sq,sk,kv_len", [(65, 64, 57), (15, 65, 64),
+                                           (1, 63, 1)])
+def test_attention_kv_len_at_tile_edges(sq, sk, kv_len):
+    """kv_len on either side of the kernel's 64-key tile: the masked call
+    equals the Pallas kernel on the first kv_len keys alone."""
+    q, k, v = _qkv(1, 2, sq, sk, 64, seed=5)
+    want = pallas_attention_packed(jx(q), jx(k[:, :, :kv_len]),
+                                   jx(v[:, :, :kv_len]), block_q=8,
+                                   interpret=True)
+    got = attention(tt(q), tt(k), tt(v), kv_len=kv_len)
     assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 

@@ -32,7 +32,9 @@ def _case(b, c, t, o, k, seed=0, bias=True):
 
 
 @pytest.mark.parametrize("b,c,t,o,k,dil", [
-    (2, 16, 300, 24, 3, 1), (1, 12, 260, 8, 7, 3), (2, 8, 330, 16, 11, 5)])
+    (2, 16, 300, 24, 3, 1), (1, 12, 260, 8, 7, 3), (2, 8, 330, 16, 11, 5),
+    (1, 24, 200, 1, 7, 1),           # conv_post's C=24 -> O=1
+    (1, 100, 150, 48, 3, 5)])        # conv_pre's C=100, past a 32-chunk
 def test_conv1d_matches_nlc_pallas(b, c, t, o, k, dil):
     x, w, bv = _case(b, c, t, o, k)
     want = conv1d_nlc_pallas(jx(x.transpose(0, 2, 1)), jx(w), jx(bv),

@@ -10,7 +10,10 @@ cannot load:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
 Tolerance: max |kernel - plain| <= tol * max |plain|, tol 2e-5 in fp32
-(another summation order) and 1e-2 in bf16 (a few bf16 ulps).
+(another summation order) and 1e-2 in bf16 (a few bf16 ulps). The bf16
+kernels A and B run on the tensor cores in tiles of 64 keys / 16 query
+rows a warp and 32 input channels x 16..128 output channels x 128..256
+time steps, so the edge cases sit on either side of those tiles.
 """
 
 import pytest
@@ -62,6 +65,42 @@ def test_attention_kernel(gen, dtype, b, h, sq, sk, d, causal, kv_len):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("sk", [1, 15, 63, 64, 65, 750])
+@pytest.mark.parametrize("sq", [1, 15, 63, 64, 65, 750])
+def test_attention_kernel_tile_edges(gen, dtype, sq, sk):
+    """Query and key counts on either side of the 16-row and 64-key tiles,
+    each unmasked, causal, and with a kv_len short of Sk."""
+    q = _rn(gen, 1, 2, sq, 64, dtype=dtype)
+    k, v = (_rn(gen, 1, 2, sk, 64, dtype=dtype) for _ in range(2))
+    for causal, kv_len in ((False, None), (True, None),
+                           (False, max(1, sk - 7))):
+        _check(attention_cuda(q, k, v, causal=causal, kv_len=kv_len),
+               attention_plain(q, k, v, causal=causal, kv_len=kv_len), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("sq,sk,causal,kv_len", [
+    (65, 64, False, 40), (750, 750, True, None), (63, 129, False, 100)])
+def test_attention_kernel_d128(gen, dtype, sq, sk, causal, kv_len):
+    q = _rn(gen, 2, 3, sq, 128, dtype=dtype)
+    k, v = (_rn(gen, 2, 3, sk, 128, dtype=dtype) for _ in range(2))
+    _check(attention_cuda(q, k, v, causal=causal, kv_len=kv_len),
+           attention_plain(q, k, v, causal=causal, kv_len=kv_len), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attention_kernel_on_qkv_chunk_views(gen, dtype):
+    """The DiT's layout: q, k, v are chunks of one [B, S, 3*H*D] projection
+    seen as [B, H, S, D] (offsets of H*D elements, row stride 3*H*D)."""
+    b, s, h, d = 2, 150, 12, 64
+    qkv = _rn(gen, b, s, 3 * h * d, dtype=dtype)
+    q, k, v = (t.reshape(b, s, h, d).transpose(1, 2)
+               for t in qkv.chunk(3, dim=-1))
+    assert not q.is_contiguous()
+    _check(attention_cuda(q, k, v), attention_plain(q, k, v), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,c,t,o,k,dil", [
     (1, 3, 20, 5, 3, 1), (2, 13, 300, 9, 7, 4), (1, 70, 257, 65, 11, 2),
     (3, 1, 1000, 17, 7, 1), (1, 33, 11, 1, 11, 1)])
@@ -71,6 +110,48 @@ def test_conv1d_kernel(gen, dtype, b, c, t, o, k, dil):
     for bias in (None, _rn(gen, o)):
         _check(conv1d_cuda(x, w, bias, dilation=dil),
                conv1d_plain(x, w, bias, dilation=dil), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("o", [1, 24, 48, 3072])
+@pytest.mark.parametrize("c", [1, 24, 100])
+def test_conv1d_kernel_channel_edges(gen, dtype, c, o):
+    """Input channels short of the 32-channel chunk (1, 24) or past a
+    whole number of them (100), output channels at every tile height; a
+    ragged T, with and without bias."""
+    k, dil, t = 7, 3, 389
+    x = _rn(gen, 2, c, t + (k - 1) * dil, dtype=dtype)
+    w = _rn(gen, o, c, k, dtype=dtype, scale=(c * k) ** -0.5)
+    for bias in (None, _rn(gen, o)):
+        _check(conv1d_cuda(x, w, bias, dilation=dil),
+               conv1d_plain(x, w, bias, dilation=dil), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k", list(range(1, 12)))
+def test_conv1d_kernel_taps(gen, dtype, k):
+    """Every tap count with dilations up to 5 (halos of 0..50 samples) and
+    time lengths just past a 128- and a 256-step tile."""
+    for dil, t, c, o in ((1 + k % 5, 129, 40, 70), (5, 257, 33, 24)):
+        x = _rn(gen, 1, c, t + (k - 1) * dil, dtype=dtype)
+        w = _rn(gen, o, c, k, dtype=dtype, scale=(c * k) ** -0.5)
+        bias = _rn(gen, o)
+        _check(conv1d_cuda(x, w, bias, dilation=dil),
+               conv1d_plain(x, w, bias, dilation=dil), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("t_in", [300, 301])
+def test_conv1d_kernel_odd_offset(gen, dtype, t_in):
+    """A contiguous x that starts one element into its storage: the bf16
+    kernel reads time pairs as 32-bit words only where they are aligned."""
+    c, o, k = 40, 24, 3
+    flat = _rn(gen, 1 + 2 * c * t_in, dtype=dtype)
+    x = flat[1:].view(2, c, t_in)
+    assert x.is_contiguous()
+    w = _rn(gen, o, c, k, dtype=dtype, scale=(c * k) ** -0.5)
+    _check(conv1d_cuda(x, w, None, dilation=2),
+           conv1d_plain(x, w, None, dilation=2), dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -143,10 +224,36 @@ def test_conv1d_ncl_batched_launches_kernel_b(gen, b, c, t, o, k, dil):
     _check(got, conv1d_plain(x, w, bias, dilation=dil), torch.float32)
 
 
+@pytest.mark.parametrize("b,c,t,o,k,dil", [(8, 32, 3000, 32, 3, 1),
+                                           (1, 16, 500, 16, 3, 2)])
+def test_conv1d_ncl_batched_bf16(gen, b, c, t, o, k, dil):
+    """#4 in bf16: the whole batch in one launch of the tensor-core kernel."""
+    x = _rn(gen, b, c, t, dtype=torch.bfloat16)
+    w = _rn(gen, o, c, k, dtype=torch.bfloat16, scale=(c * k) ** -0.5)
+    bias = _rn(gen, o)
+    before = kernels.launches["conv1d"]
+    got = conv1d_ncl_batched(x, w, bias, dilation=dil)
+    assert kernels.launches["conv1d"] == before + 1
+    assert got.dtype == torch.bfloat16
+    _check(got, conv1d_plain(x, w, bias, dilation=dil), torch.bfloat16)
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     q = _rn(gen, 1, 2, 8, 32)
     with pytest.raises(ValueError, match="head_dim"):
         attention_cuda(q, q, q)
+    # bf16 operands feed 16-byte copies: a view one element off, or a row
+    # stride that is not a multiple of 8, is refused (fp32 takes both)
+    buf = _rn(gen, 1, 2, 9 * 64 + 1, dtype=torch.bfloat16)
+    off = buf[..., 1:].reshape(1, 2, 9, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        attention_cuda(off, off, off)
+    odd = _rn(gen, 1, 2, 9, 65, dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="aligned"):
+        attention_cuda(odd, odd, odd)
+    _check(attention_cuda(odd.float(), odd.float(), odd.float()),
+           attention_plain(odd.float(), odd.float(), odd.float()),
+           torch.float32)
     x = _rn(gen, 1, 4, 40)
     with pytest.raises(ValueError, match="K=12"):
         conv1d_cuda(x, _rn(gen, 4, 4, 12))
