@@ -8,8 +8,9 @@ Phases (any failure exits non-zero and prints no result line):
   2. build    nvcc builds kernels A, B, C, D from ditto_tts_tpu_torch/csrc/
               (one nvcc per source, all at once); each kernel's registers
               and spills (ptxas) and tensor-core instructions (cuobjdump
-              -sass), which must be in every bf16 kernel of A and B
-              (*_kernel_tc) and in none of their fp32 kernels
+              -sass, which the toolkit must have), which must be in every
+              bf16 kernel of A and B (*_kernel_tc) and in none of their
+              fp32 kernels
   3. kernels  each kernel against its plain PyTorch version at the paths'
               shapes, bf16 and fp32, with the stated tolerance (A at the
               DiT's four shapes; B at every bf16 shape class of the vocoder
@@ -26,7 +27,8 @@ Phases (any failure exits non-zero and prints no result line):
               seed that must be bitwise equal) and the 20 s bucket at B=4;
               launches of every kernel, read over this phase, must be
               exactly those of the default path (per request A 1200, B 90,
-              C 54, D 0); the shapes of A's and B's calls in one request
+              C 54, D 0); the shapes of A's and B's calls in the untimed
+              warm-up request
   5. parity   full width, 1 s prompt, B=1, fp32 with TF32 off, all 50
               steps (respaced to 4 steps, the first step's beta rounds to
               1.0 in fp32 and the update divides by zero, in JAX too):
@@ -35,7 +37,7 @@ Phases (any failure exits non-zero and prints no result line):
               index agreement, and the CPU's indices decoded on the card
   6. the vocoder under aa_impl="fused_pallas": the 10 s bucket at B=4
      (warm-up and two timed requests; per request D 108, C 0; the shapes of
-     A's and B's calls in one request), the vocoder
+     A's and B's calls in the warm-up), the vocoder
      stage on phase 4's mel under both settings in turns, and the
      full-width vocoder at B=1, fp32, on the card against the CPU (max
      |err| <= 1e-3)
@@ -53,6 +55,7 @@ to $DITTO_RECORD_DIR/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -445,14 +448,13 @@ def serving_phase(torch, np, cfg, params, rec):
     kernels.reset_launches()
     out = {}
     inputs = request(10, 4, 1)
-    wav0, warm = run(inputs, 7)
+    with ShapeLog() as shapes:      # untimed: the timed requests stay bare
+        wav0, warm = run(inputs, 7)
+    shape_log = shapes.report("default 10 s")
     check(wav0, "10s warm-up")
     times = []
     for seed in (7, 8, 9):
-        with ShapeLog() as shapes:
-            wav, dt = run(inputs, seed)
-        if seed == 8:
-            shape_log = shapes.report("default 10 s")
+        wav, dt = run(inputs, seed)
         check(wav, f"10s seed {seed}")
         times.append(dt)
         if seed == 7 and not torch.equal(wav, wav0):
@@ -569,11 +571,11 @@ def fused_pallas_phase(torch, cfg, params, params_cpu, inputs, mel, rec):
     out = {}
     kernels.reset_launches()
     times = []
-    for seed in (7, 7, 8):       # warm-up, then two timed requests
-        with ShapeLog() as shapes:
+    for i, seed in enumerate((7, 7, 8)):   # warm-up, then two timed requests
+        with ShapeLog() if i == 0 else contextlib.nullcontext() as shapes:
             wav, dt = sync_time(torch, serve, params, *inputs,
                                 torch.Generator(device=dev).manual_seed(seed))
-        if seed == 8:
+        if i == 0:
             shape_log = shapes.report("fused_pallas 10 s")
         check_wave(torch, wav, f"fused_pallas seed {seed}")
         times.append(dt)
@@ -825,8 +827,8 @@ def main() -> None:
     for name in ("attention", "conv1d"):
         mma = rec["sass_mma"][name]
         if mma is None:
-            log(f"  [{name}] no cuobjdump: tensor-core count not measured")
-            continue
+            fail(f"{name}: no cuobjdump beside nvcc, so the tensor-core "
+                 "instructions of the bf16 kernels cannot be checked")
         tc = {fn: n for fn, n in mma.items() if "kernel_tc" in fn}
         if not tc or not all(tc.values()) or any(
                 n for fn, n in mma.items() if fn not in tc):

@@ -236,24 +236,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // ---- bf16: flash attention on the tensor cores ----
 
 constexpr int kTcBK = 64;    // keys per K/V tile
+constexpr int kTcWarps = 4;  // 16 query rows each
 
 // Q, two K and two V tiles of bf16 rows, pitch D + 8 elements
-template <int D, int WARPS>
+template <int D>
 constexpr size_t attn_tc_smem_bytes() {
-  return static_cast<size_t>(16 * WARPS + 4 * kTcBK) * (D + 8) *
+  return static_cast<size_t>(16 * kTcWarps + 4 * kTcBK) * (D + 8) *
          sizeof(__nv_bfloat16);
 }
 
-template <int D, int WARPS>
-__global__ void __launch_bounds__(WARPS * 32)
+template <int D>
+__global__ void __launch_bounds__(kTcWarps * 32)
 attn_kernel_tc(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v,
                __nv_bfloat16* __restrict__ o, Strides qs, Strides ks,
                Strides vs, Strides os, int H, int Sq, int Sk, int kv_len,
                int causal, float scale) {
-  constexpr int BQ = 16 * WARPS, BK = kTcBK, P = D + 8;   // row pitch
-  constexpr int NTHR = WARPS * 32, CH = D / 8;   // 16-byte chunks per row
+  constexpr int BQ = 16 * kTcWarps, BK = kTcBK, P = D + 8;   // row pitch
+  constexpr int NTHR = kTcWarps * 32, CH = D / 8;   // 16-byte chunks per row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][P]
   __nv_bfloat16* Ks = Qs + BQ * P;                                 // [2][BK][P]
@@ -408,17 +409,18 @@ attn_kernel_tc(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int D, int WARPS>
+template <int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
                       const long long* st, int B, int H, int Sq, int Sk,
                       int kv_len, int causal, float scale,
                       cudaStream_t stream) {
-  const size_t smem = attn_tc_smem_bytes<D, WARPS>();
-  auto kernel = attn_kernel_tc<D, WARPS>;
+  const size_t smem = attn_tc_smem_bytes<D>();
+  auto kernel = attn_kernel_tc<D>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + 16 * WARPS - 1) / (16 * WARPS), B * H);
-  kernel<<<grid, WARPS * 32, smem, stream>>>(
+  constexpr int BQ = 16 * kTcWarps;
+  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
+  kernel<<<grid, kTcWarps * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
@@ -427,28 +429,14 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t dispatch_tc(const void* q, const void* k, const void* v, void* o,
-                        const long long* st, int B, int H, int Sq, int Sk,
-                        int kv_len, int causal, float scale, int warps,
-                        cudaStream_t s) {
-  if (warps == 8)
-    return launch_tc<D, 8>(q, k, v, o, st, B, H, Sq, Sk, kv_len, causal, scale, s);
-  if (warps == 4 || warps == 0)
-    return launch_tc<D, 4>(q, k, v, o, st, B, H, Sq, Sk, kv_len, causal, scale, s);
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace
 }  // namespace ditto
 
-// strides: 12 element strides (b, h, s) of q, k, v, o in that order;
-// warps: query rows per bf16 block / 16 (4 or 8; 0 picks the default)
+// strides: 12 element strides (b, h, s) of q, k, v, o in that order
 extern "C" int ditto_attention(const void* q, const void* k, const void* v,
                                void* o, const long long* strides, int B, int H,
                                int Sq, int Sk, int D, int kv_len, int causal,
-                               float scale, int dtype, int warps,
-                               void* stream) {
+                               float scale, int dtype, void* stream) {
   using namespace ditto;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32 && D == 64)
@@ -456,8 +444,8 @@ extern "C" int ditto_attention(const void* q, const void* k, const void* v,
   if (dtype == kFloat32 && D == 128)
     return launch<128>(q, k, v, o, strides, B, H, Sq, Sk, kv_len, causal, scale, s);
   if (dtype == kBFloat16 && D == 64)
-    return dispatch_tc<64>(q, k, v, o, strides, B, H, Sq, Sk, kv_len, causal, scale, warps, s);
+    return launch_tc<64>(q, k, v, o, strides, B, H, Sq, Sk, kv_len, causal, scale, s);
   if (dtype == kBFloat16 && D == 128)
-    return dispatch_tc<128>(q, k, v, o, strides, B, H, Sq, Sk, kv_len, causal, scale, warps, s);
+    return launch_tc<128>(q, k, v, o, strides, B, H, Sq, Sk, kv_len, causal, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -364,25 +364,17 @@ cudaError_t launch_tc(const void* x, const void* wr, const float* bias,
   return cudaGetLastError();
 }
 
-// tile configurations (BM, BN, warp tile, chunk), each the fastest one
-// measured for its band of O (PERF.md); -1 picks by O
-constexpr int kTiles = 3;
-
-int pick_tile(int O) {
-  if (O > 32 && (O <= 64 || O % 128 == 64)) return 1;   // 48, 192
-  if (O > 32) return 0;   // 96, 384 .. 3072
-  return 2;               // 1..32: the shortest chain of work per block
-}
-
+// the tile configuration (BM, BN, warp tile, chunk) by O, each the fastest
+// one measured for its band of O (PERF.md)
 cudaError_t dispatch_tc(const void* x, const void* wr, const float* bias,
                         void* y, int B, int C, int Cp, int Tin, int O, int K,
-                        int dil, int tile, cudaStream_t s) {
-  switch (tile < 0 ? pick_tile(O) : tile) {
-    case 0: return launch_tc<128, 128, 64, 32, 32>(x, wr, bias, y, B, C, Cp, Tin, O, K, dil, s);
-    case 1: return launch_tc<64, 128, 32, 32, 64>(x, wr, bias, y, B, C, Cp, Tin, O, K, dil, s);
-    case 2: return launch_tc<16, 256, 16, 32, 32>(x, wr, bias, y, B, C, Cp, Tin, O, K, dil, s);
-    default: return cudaErrorInvalidValue;
-  }
+                        int dil, cudaStream_t s) {
+  if (O > 32 && (O <= 64 || O % 128 == 64))   // 48, 192
+    return launch_tc<64, 128, 32, 32, 64>(x, wr, bias, y, B, C, Cp, Tin, O, K, dil, s);
+  if (O > 32)   // 96, 384 .. 3072
+    return launch_tc<128, 128, 64, 32, 32>(x, wr, bias, y, B, C, Cp, Tin, O, K, dil, s);
+  // 1..32: the shortest chain of work per block
+  return launch_tc<16, 256, 16, 32, 32>(x, wr, bias, y, B, C, Cp, Tin, O, K, dil, s);
 }
 
 }  // namespace
@@ -398,14 +390,12 @@ extern "C" int ditto_conv1d_f32(const void* x, const void* w,
 }
 
 // bf16: as ditto_conv1d_f32, plus wr, scratch for the reordered weights
-// [K, O, (C+7)/8*8]; tile -1 picks the tile by O (0..kTiles-1 to measure)
+// [K, O, (C+7)/8*8]
 extern "C" int ditto_conv1d_bf16(const void* x, const void* w, void* wr,
                                  const float* bias, void* y, int B, int C,
-                                 int Tin, int O, int K, int dil, int tile,
-                                 void* stream) {
+                                 int Tin, int O, int K, int dil, void* stream) {
   using namespace ditto;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tile >= kTiles) return static_cast<int>(cudaErrorInvalidValue);
   const int Cp = (C + 7) / 8 * 8;
   const int n = K * O * Cp;
   const int blocks = n / 256 + 1 < 4096 ? n / 256 + 1 : 4096;
@@ -415,5 +405,5 @@ extern "C" int ditto_conv1d_bf16(const void* x, const void* w, void* wr,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
-      dispatch_tc(x, wr, bias, y, B, C, Cp, Tin, O, K, dil, tile, s));
+      dispatch_tc(x, wr, bias, y, B, C, Cp, Tin, O, K, dil, s));
 }

@@ -1,6 +1,6 @@
 """Kernels A and B at every bf16 shape of the serving path, on the card.
 
-    python -m ditto_tts_tpu_torch.kernel_bench [--json FILE] [--sweep]
+    python -m ditto_tts_tpu_torch.kernel_bench [--json FILE]
 
 For each shape of ``ATTN_SHAPES`` and ``CONV_SHAPES`` (the 10 s / 20 s
 buckets at B=4): the kernel's ms (CUDA events over repeated launches, warm
@@ -12,8 +12,7 @@ operations over 989 TFLOP/s) and max |kernel - plain| / max |plain|.
 It calls only the wrappers' public names (``attention_cuda``,
 ``conv1d_cuda`` and their plain versions), so a copy of this file in an
 older checkout's package times that checkout's kernels: two versions are
-compared in one call on one card by running both, in turns. ``--sweep``
-also times every tile configuration the kernels offer (this checkout only).
+compared in one call on one card by running both, in turns.
 ``chip_smoke.py`` phase 3 runs the same shapes through ``run_attention`` and
 ``run_conv``. Needs one CUDA card.
 """
@@ -147,7 +146,7 @@ def _row(torch, label, shape, fn, library, flops, nb, err, rel):
             "rel_err": rel}
 
 
-def run_attention(torch, gen, compare=None, sweep=False):
+def run_attention(torch, gen, compare=None):
     """Rows for ATTN_SHAPES in bf16; ``compare(label, got, want)`` checks
     each result (chip_smoke's tolerance), else the error is only kept."""
     import torch.nn.functional as F
@@ -162,18 +161,15 @@ def run_attention(torch, gen, compare=None, sweep=False):
         if compare is not None:
             compare(f"{label} B{b} H{h} Sq{sq} Sk{sk} D{d}", got, want)
         shape = f"bf16 B={b} H={h} Sq={sq} Sk={sk} D={d} ({label})"
-        row = _row(torch, label, shape, lambda: A.attention_cuda(q, k, v),
-                   lambda: F.scaled_dot_product_attention(q, k, v),
-                   4.0 * b * h * sq * sk * d, _nbytes(q, k, v, got), err, rel)
-        if sweep:
-            row["sweep_ms"] = {
-                f"{w} warps": cuda_ms(torch, lambda: A._attention_launch(
-                    q, k, v, False, None, None, warps=w)) for w in (4, 8)}
-        rows.append(row)
+        rows.append(_row(torch, label, shape,
+                         lambda: A.attention_cuda(q, k, v),
+                         lambda: F.scaled_dot_product_attention(q, k, v),
+                         4.0 * b * h * sq * sk * d, _nbytes(q, k, v, got),
+                         err, rel))
     return rows
 
 
-def run_conv(torch, gen, compare=None, sweep=False):
+def run_conv(torch, gen, compare=None):
     """Rows for CONV_SHAPES in bf16, as ``run_attention``."""
     import torch.nn.functional as F
     from .ops import conv as B
@@ -194,24 +190,17 @@ def run_conv(torch, gen, compare=None, sweep=False):
         bias16 = bias.bfloat16()
         shape = (f"bf16 B={b} C={c} O={o} K={k} dil={dil} T={t_out} "
                  f"({label})")
-        row = _row(torch, label, shape,
-                   lambda: B.conv1d_cuda(x, w, bias, dilation=dil),
-                   lambda: F.conv1d(x, w, bias16, dilation=dil),
-                   2.0 * b * o * c * k * t_out, _nbytes(x, w, bias, got),
-                   err, rel)
-        if sweep:
-            row["sweep_ms"] = {
-                f"tile {i}": cuda_ms(torch, lambda: B._conv1d_launch(
-                    x, w, bias, dil, tile=i)) for i in range(B.N_TILES)}
-        rows.append(row)
+        rows.append(_row(torch, label, shape,
+                         lambda: B.conv1d_cuda(x, w, bias, dilation=dil),
+                         lambda: F.conv1d(x, w, bias16, dilation=dil),
+                         2.0 * b * o * c * k * t_out,
+                         _nbytes(x, w, bias, got), err, rel))
     return rows
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", default=None, help="write the rows here")
-    ap.add_argument("--sweep", action="store_true",
-                    help="also time every tile configuration")
     args = ap.parse_args(argv)
     import torch
     from . import kernels
@@ -238,21 +227,19 @@ def main(argv=None) -> int:
     out = {"card": card, "torch": torch.__version__,
            "copy_46MB": {"ms": copy_ms,
                          "GB_per_s": 2 * big.numel() * 2 / copy_ms / 1e6},
-           "attention": run_attention(torch, gen, sweep=args.sweep),
-           "conv1d": run_conv(torch, gen, sweep=args.sweep)}
+           "attention": run_attention(torch, gen),
+           "conv1d": run_conv(torch, gen)}
     print(card)
     print(f"device copy of 46 MB (the narrow stages' x): {copy_ms:.4f} ms, "
           f"{out['copy_46MB']['GB_per_s']:.0f} GB/s read + written")
     for kind in ("attention", "conv1d"):
         for r in out[kind]:
             lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-            extra = "" if "sweep_ms" not in r else "  " + ", ".join(
-                f"{k} {v:.4f}" for k, v in r["sweep_ms"].items())
             print(f"{kind:9s} {r['label']:18s} {r['ms']:9.4f} ms (eager "
                   f"{r.get('call_ms', float('nan')):.4f})  library "
                   f"{lib:>8s}  bound {r['bound_ms']:.4f} ({r['bound_by']})  "
-                  f"{r['tflops']:7.1f} TFLOP/s  rel err {r['rel_err']:.2e}"
-                  + extra, flush=True)
+                  f"{r['tflops']:7.1f} TFLOP/s  rel err {r['rel_err']:.2e}",
+                  flush=True)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(out, f, indent=1)

@@ -46,8 +46,7 @@ def attention_plain(q, k, v, *, causal: bool = False,
 
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)] \
-    + [ctypes.c_int] * 7 \
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 def attention_cuda(q, k, v, *, causal: bool = False,
@@ -59,12 +58,6 @@ def attention_cuda(q, k, v, *, causal: bool = False,
     asynchronous copies) every operand 16-byte aligned with (b, h, s)
     strides that are multiples of 8. Returns [B, H, Sq, D] as a view of a
     [B, Sq, H, D] buffer, so merging heads after it is free."""
-    return _attention_launch(q, k, v, causal, sm_scale, kv_len, warps=0)
-
-
-def _attention_launch(q, k, v, causal, sm_scale, kv_len, *, warps: int):
-    """``attention_cuda`` with the bf16 kernel's warps per block chosen (4
-    or 8; 0 is the default), for measuring the block size."""
     kernels.require_cuda("attention", q, k, v)
     if q.dtype not in kernels.DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
@@ -97,7 +90,7 @@ def _attention_launch(q, k, v, causal, sm_scale, kv_len, *, warps: int):
     fn = kernels.function("attention", "ditto_attention", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), strides,
              b, h, sq, sk, d, kvl, int(causal), scale,
-             kernels.DTYPE_CODES[q.dtype], warps, kernels.stream_ptr(q))
+             kernels.DTYPE_CODES[q.dtype], kernels.stream_ptr(q))
     kernels.check(err, "attention")
     kernels.launches["attention"] += 1
     return o

@@ -40,8 +40,7 @@ def conv1d_plain(x, weight, bias=None, *, dilation: int = 1):
 
 
 _ARGTYPES_F32 = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_ARGTYPES_BF16 = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-N_TILES = 3     # the bf16 kernel's tile configurations (csrc/conv1d.cu)
+_ARGTYPES_BF16 = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def conv1d_cuda(x, weight, bias=None, *, dilation: int = 1):
@@ -49,12 +48,6 @@ def conv1d_cuda(x, weight, bias=None, *, dilation: int = 1):
     or bf16), K <= 11; bias [O] fp32 or None. Returns [B, O, T-(K-1)*dil]
     in x's type. bf16 runs the tensor-core kernel (after a reorder of the
     weights to [K, O, C] inside the same call), fp32 the CUDA-core one."""
-    return _conv1d_launch(x, weight, bias, dilation, tile=-1)
-
-
-def _conv1d_launch(x, weight, bias, dilation: int, *, tile: int):
-    """``conv1d_cuda`` with the bf16 kernel's tile configuration chosen
-    (0..N_TILES-1; -1 picks it from O), for measuring the tiles."""
     tensors = (x, weight) if bias is None else (x, weight, bias)
     kernels.require_cuda("conv1d", *tensors)
     if x.dtype not in kernels.DTYPE_CODES or weight.dtype != x.dtype:
@@ -86,7 +79,7 @@ def _conv1d_launch(x, weight, bias, dilation: int, *, tile: int):
         wr = torch.empty((k, o, cp), dtype=x.dtype, device=x.device)
         fn = kernels.function("conv1d", "ditto_conv1d_bf16", _ARGTYPES_BF16)
         err = fn(x.data_ptr(), weight.data_ptr(), wr.data_ptr(), bias_ptr,
-                 y.data_ptr(), b, c, t_in, o, k, dilation, tile,
+                 y.data_ptr(), b, c, t_in, o, k, dilation,
                  kernels.stream_ptr(x))
     else:
         fn = kernels.function("conv1d", "ditto_conv1d_f32", _ARGTYPES_F32)
