@@ -9,8 +9,8 @@ Phases (any failure exits non-zero and prints no result line):
               (one nvcc per source, all at once); each kernel's registers
               and spills (ptxas) and tensor-core instructions (cuobjdump
               -sass, which the toolkit must have), which must be in every
-              bf16 kernel of A and B (*_kernel_tc) and in none of their
-              fp32 kernels
+              bf16 kernel of A, B and C (*_kernel_tc) and in none of their
+              fp32 kernels, the weight reorder, or D
   3. kernels  each kernel against its plain PyTorch version at the paths'
               shapes, bf16 and fp32, with the stated tolerance (A at the
               DiT's four shapes; B at every bf16 shape class of the vocoder
@@ -355,13 +355,39 @@ def kernel_phase(torch, rec):
                                 2.0 * 4 * c * c * k * t + 57.0 * 4 * c * t,
                                 nbytes(x, w, bias, a, inv_b, res, got), dt)
 
+    # ---- C's tensor-core path at the edges of its tiles: T off BN, O off
+    # BM, C off KC, T just above the wrappers' short-sequence gates, and an
+    # fp32 output with bf16 operands ----
+    for b_, c, t, o, k, dil in ((1, 40, 300, 70, 7, 3),
+                                (2, 100, 257, 200, 11, 5),
+                                (1, 70, 129, 48, 3, 1), (1, 24, 65, 24, 11, 5),
+                                (1, 48, 129, 48, 11, 5),
+                                (1, 33, 1000, 24, 3, 1)):
+        x = rn(b_, c, t, dtype=bf16, scale=2.0)
+        a = torch.exp(rn(c, scale=0.3))
+        inv_b = 1.0 / (torch.exp(rn(c, scale=0.3)) + 1e-9)
+        w = rn(o, c, k, dtype=bf16, scale=(c * k) ** -0.5)
+        bias = rn(o)
+        for ydt in dtypes:
+            res = rn(b_, o, t, dtype=ydt)
+            checks.compare(
+                "act_conv", f"tile edge B{b_} C{c} T{t} O{o} K{k} dil{dil} "
+                f"+res -> {str(ydt)[6:]}",
+                aa_snake_conv1d_cuda(x, a, inv_b, w, bias, dilation=dil,
+                                     residual=res, out_dtype=ydt),
+                aa_snake_conv1d_plain(x, a, inv_b, w, bias, dilation=dil,
+                                      residual=res, out_dtype=ydt),
+                "bfloat16")
+
     # ---- D: the standalone AA snake, #9 mode (fp32 upsample taps) at the
     # NLC widths on a [B, T, C] tensor and on the [B, C, T] carry, #8 mode
-    # (taps in x's type) at the NCL-hybrid widths; a ragged T and T < 8 ----
+    # (taps in x's type) at the NCL-hybrid widths; a ragged T, T < 8, T
+    # shorter than one 16-sample run (5, 7) and one run + 1 (17), and
+    # [B, C, T] views an odd number of elements into their storage ----
     d_cases = [("#9", 768, 3752), ("#9", 384, 15008), ("#9", 192, 30016),
                ("#9", 96, 60032), ("#8", 48, 120064), ("#8", 24, 240128),
                ("#9", 100, 1000), ("#8", 40, 1000), ("#9", 96, 5),
-               ("#8", 24, 7)]
+               ("#8", 24, 7), ("#9", 96, 17), ("#8", 24, 17)]
     for site, c, t in d_cases:
         up_x = site == "#8"
         for dt in dtypes:
@@ -369,10 +395,16 @@ def kernel_phase(torch, rec):
             for with_beta in (True, False):
                 a, inv_b = snake_coeffs(rn(c, scale=0.3), rn(c, scale=0.3)
                                         if with_beta else None)
-                for view in ("[B,C,T]", "[B,T,C]") if site == "#9" \
-                        else ("[B,C,T]",):
-                    x = rn(4, c, t, dtype=dt, scale=2.0) if view == "[B,C,T]" \
-                        else rn(4, t, c, dtype=dt, scale=2.0).transpose(1, 2)
+                views = ["[B,C,T]"] + (["[B,T,C]"] if site == "#9" else []) \
+                    + (["[B,C,T] at offset 1"] if t <= 1000 else [])
+                for view in views:
+                    if view == "[B,C,T]":
+                        x = rn(4, c, t, dtype=dt, scale=2.0)
+                    elif view == "[B,T,C]":
+                        x = rn(4, t, c, dtype=dt, scale=2.0).transpose(1, 2)
+                    else:
+                        x = rn(1 + 4 * c * t, dtype=dt,
+                               scale=2.0)[1:].view(4, c, t)
                     got = fused_snake_cuda(x, a, inv_b, up_in_x_dtype=up_x)
                     want = fused_snake_plain(x, a, inv_b, up_in_x_dtype=up_x)
                     err = checks.compare(
@@ -822,15 +854,16 @@ def main() -> None:
             n_mma = "n/a" if mma is None else mma.get(fn, "?")
             log(f"  [{name}] {fn[:110]}: {regs} registers, spill stores "
                 f"{st} B, spill loads {ld} B, HMMA/HGMMA in SASS {n_mma}")
-    # A and B: the bf16 kernels (*_tc) run on the tensor cores, the fp32
-    # ones (exact fp32, TF32 would break the fp32 tolerance) do not
-    for name in ("attention", "conv1d"):
+    # A, B and C: the bf16 kernels (*_tc) run on the tensor cores, the fp32
+    # ones (exact fp32, TF32 would break the fp32 tolerance) and the weight
+    # reorder do not; D (an elementwise filter) has none
+    for name in kernels.KERNELS:
         mma = rec["sass_mma"][name]
         if mma is None:
             fail(f"{name}: no cuobjdump beside nvcc, so the tensor-core "
                  "instructions of the bf16 kernels cannot be checked")
         tc = {fn: n for fn, n in mma.items() if "kernel_tc" in fn}
-        if not tc or not all(tc.values()) or any(
+        if (name == "snake") != (not tc) or not all(tc.values()) or any(
                 n for fn, n in mma.items() if fn not in tc):
             fail(f"{name}: tensor-core instructions in the wrong kernels: "
                  f"{mma}")

@@ -12,12 +12,13 @@
 //       s(v) = v + inv_b * sin(a*v)^2        (a = exp(alpha), inv_b =
 //                                             1/(exp(beta)+1e-9), per channel)
 //       z[t] = sum_r h[2r] s(o)[t+r-3] + h[2r+1] s(e)[t+r-2]
-//     with h the 12-tap kaiser-sinc low-pass, then zeroed outside [0, T);
+//     with h the 12-tap kaiser-sinc low-pass, then zeroed outside [0, T)
+//     (aa_act.cuh, in the order of aa_snake_conv1d_plain);
 //   * z is rounded to the compute type before the tap contraction, which
 //     sums in fp32 with the fp32 bias (and, for the time-minor twin
 //     aa_snake_conv1d_ncl, the residual) before the single cast to the
 //     output type TY (the signal's carry type; x and w have the compute
-//     type T).
+//     type).
 //
 // It also replaces ditto_tts_tpu/ops/act_conv_pallas.py aa_snake_conv1d_ncl
 // (_kernel_ncl), the same function on the time-minor layout with the AMP
@@ -29,39 +30,60 @@
 //
 // What bounds it on an H100: at C=O=384, T=15k, B=4, K=11 a pair is
 // 2*B*O*C*K*T = 1.9e11 FLOP against ~0.1 GB of x and y, far above the
-// card's ~295 FLOP/byte line: operations bound. This first version runs the
-// taps on the CUDA cores in fp32 (ceiling: the fp32 FMA rate).
+// card's ~295 FLOP/byte line: operations bound, on the tensor cores in
+// bf16. The activation adds ~60-100 issued fp32 instructions per sample of
+// each channel chunk, once for each output-channel tile.
 //
-// Design: the conv tiling is kernel B's (8*TO output channels x 32*TTH time
-// steps per block, a TO x TTH register tile per thread, input channels in
-// chunks of 8). At C=384 and K=11, dil=5 a shared-memory window of every
-// channel does not fit, but the activation is per channel, so each chunk is
-// activated where it is staged: the chunk's x rows (clamped) go to shared
-// memory, the two 6-tap upsample phases and the snake are evaluated into
-// two phase buffers, the 12-tap decimation writes z over the x buffer, and
-// the chunk's taps accumulate into registers. The activation is recomputed
-// once per output-channel tile (O/OB times), a small cost next to the taps;
-// OB is 64, or 32 where O <= 32 (the 24-wide stage), so no warp row idles.
+// bf16 (act_conv_kernel_tc): kernel B's tap-sum implicit GEMM on mma.sync
+// (tap_gemm.cuh) with the activation where B stages x. A block of 8 warps
+// owns a BM x BN tile (output channels x time) of one batch row in fp32
+// mma fragments and walks the input channels in chunks of KC. Each chunk's
+// activated signal is a time-major slab [BN + 2*ca][KC + 8] in shared
+// memory (row r is z at t0 - ca + r), and tap m reads it shifted by m*dil
+// rows, so one slab feeds all K taps. A thread computes a run of NR slab
+// rows of one channel in registers (aa_act.cuh): it reads x over the run
+// and its 5-sample halos with 16-byte loads (runs start where the window
+// is 16-byte aligned in time), rounds z to bf16 and stores it into its
+// channel's column (a warp's 32 lanes are 32 channels, so each row store is
+// one contiguous 64-byte segment). The slabs are double-buffered: the next
+// chunk's activation runs in rounds spread over the current chunk's taps,
+// right after each tap's mma instructions are issued, so the fp32 pipes
+// work while the tensor cores do (the register double buffer of B, with
+// the activation in place of B's plain copy; the block keeps one warp
+// role, since its fragments already hold most of the registers). The
+// weights are reordered per call into [K][O][Cp] (tap_weight_reorder) and
+// stream through B's 3-deep cp.async ring. Epilogue straight from the
+// fragments: the fp32 bias and residual join the sum before the one cast
+// to TY; ragged T and O are masked. The activation is recomputed once per
+// output-channel tile, ceil(O / BM) times.
+//
+// fp32 (act_conv_kernel) stays on the CUDA cores in exact fp32 (TF32 would
+// break the fp32 chain parity's 2e-5): kernel B's fp32 tiling (8*TO output
+// channels x 32*TTH time steps per block, a TO x TTH register tile per
+// thread, input channels in chunks of 8); each chunk's x rows go to shared
+// memory, the two upsample phases and the snake are evaluated into two
+// phase buffers, the decimation writes z over the x buffer, and the
+// chunk's taps accumulate from shared memory.
 
+#include "aa_act.cuh"
 #include "common.cuh"
+#include "tap_gemm.cuh"
 
 namespace ditto {
 namespace {
 
+// ---- fp32 x and w: the CUDA cores ----
+
 constexpr int kThreads = 256;
 constexpr int kCC = 8;
 
-struct Taps {
-  float eu[6], ou[6], ze[6], zo[6];  // 2h[2r], 2h[2r+1], h[2r+1], h[2r]
-};
-
-template <typename T, typename TY, int TO, int TTH>
+template <typename TY, int TO, int TTH>
 __global__ void __launch_bounds__(kThreads)
-act_conv_kernel(const T* __restrict__ x, const float* __restrict__ a,
-                const float* __restrict__ inv_b, const T* __restrict__ w,
+act_conv_kernel(const float* __restrict__ x, const float* __restrict__ a,
+                const float* __restrict__ inv_b, const float* __restrict__ w,
                 const float* __restrict__ bias, const TY* __restrict__ res,
-                TY* __restrict__ y, Taps taps, int C, int Tlen, int O, int K,
-                int dil) {
+                TY* __restrict__ y, AaTaps taps, int C, int Tlen, int O,
+                int K, int dil) {
   constexpr int OB = 8 * TO, TB = 32 * TTH;
   extern __shared__ float smem[];
   const int ca = (K - 1) * dil / 2;   // 'SAME' padding of the conv
@@ -75,7 +97,7 @@ act_conv_kernel(const T* __restrict__ x, const float* __restrict__ a,
 
   const int t0 = blockIdx.x * TB, o0 = blockIdx.y * OB, b = blockIdx.z;
   const int tid = threadIdx.x, to = tid >> 5, tt = tid & 31;
-  const T* xb = x + static_cast<long long>(b) * C * Tlen;
+  const float* xb = x + static_cast<long long>(b) * C * Tlen;
 
   float acc[TO][TTH];
 #pragma unroll
@@ -89,14 +111,14 @@ act_conv_kernel(const T* __restrict__ x, const float* __restrict__ a,
       const int c = i / NX, j = i % NX;
       const int cc = c0 + c;
       const int t = min(max(t0 - ca - 6 + j, 0), Tlen - 1);
-      xs[i] = cc < C ? to_f<T>(xb[static_cast<long long>(cc) * Tlen + t]) : 0.f;
+      xs[i] = cc < C ? xb[static_cast<long long>(cc) * Tlen + t] : 0.f;
     }
     for (int i = tid; i < OB * kCC * K; i += kThreads) {
       const int o = i / (kCC * K), r = i % (kCC * K);
       const int c = r / K, kk = r % K;
       const int oo = o0 + o, cc = c0 + c;
       ws[i] = (oo < O && cc < C)
-                  ? to_f<T>(w[(static_cast<long long>(oo) * C + cc) * K + kk]) : 0.f;
+                  ? w[(static_cast<long long>(oo) * C + cc) * K + kk] : 0.f;
     }
     __syncthreads();
     // upsample phases + snake, fp32
@@ -104,32 +126,30 @@ act_conv_kernel(const T* __restrict__ x, const float* __restrict__ a,
       const int c = i / NP, p = i % NP;
       const int cc = c0 + c;
       const float* xr = xs + c * NX + p;
-      float e = taps.eu[0] * xr[0];
-      float od = taps.ou[0] * xr[1];
+      float e = taps.ue[0] * xr[0];
+      float od = taps.uo[0] * xr[1];
 #pragma unroll
       for (int m = 1; m < 6; ++m) {
-        e = e + taps.eu[m] * xr[m];
-        od = od + taps.ou[m] * xr[m + 1];
+        e = e + taps.ue[m] * xr[m];
+        od = od + taps.uo[m] * xr[m + 1];
       }
       const float av = cc < C ? a[cc] : 0.f;
       const float ib = cc < C ? inv_b[cc] : 0.f;
-      const float s1 = sinf(av * e), s2 = sinf(av * od);
-      se[i] = e + ib * (s1 * s1);
-      so[i] = od + ib * (s2 * s2);
+      se[i] = snake_act(e, av, ib);
+      so[i] = snake_act(od, av, ib);
     }
     __syncthreads();
-    // decimation, zeroed outside [0, T), rounded to the compute type;
-    // z overwrites the x buffer (row stride NZ)
+    // decimation, zeroed outside [0, T); z overwrites the x buffer (row
+    // stride NZ)
     for (int i = tid; i < kCC * NZ; i += kThreads) {
       const int c = i / NZ, r = i % NZ;
       const float* sor = so + c * NP + r;
       const float* ser = se + c * NP + r + 1;
-      float z = taps.zo[0] * sor[0] + taps.ze[0] * ser[0];
+      float z = taps.dn[0] * sor[0] + taps.de[0] * ser[0];
 #pragma unroll
-      for (int m = 1; m < 6; ++m) z = z + taps.zo[m] * sor[m] + taps.ze[m] * ser[m];
+      for (int m = 1; m < 6; ++m) z = z + taps.dn[m] * sor[m] + taps.de[m] * ser[m];
       const int t = t0 - ca + r;
-      z = (t < 0 || t >= Tlen) ? 0.f : round_to<T>(z);
-      xs[i] = z;
+      xs[i] = (t < 0 || t >= Tlen) ? 0.f : z;
     }
     __syncthreads();
     for (int c = 0; c < kCC; ++c) {
@@ -165,10 +185,10 @@ act_conv_kernel(const T* __restrict__ x, const float* __restrict__ a,
   }
 }
 
-template <typename T, typename TY, int TO>
+template <typename TY, int TO>
 cudaError_t launch(const void* x, const float* a, const float* inv_b,
                    const void* w, const float* bias, const void* res, void* y,
-                   const Taps& taps, int B, int C, int Tlen, int O, int K,
+                   const AaTaps& taps, int B, int C, int Tlen, int O, int K,
                    int dil, cudaStream_t stream) {
   constexpr int TTH = 8;
   constexpr int OB = 8 * TO, TB = 32 * TTH;
@@ -177,25 +197,236 @@ cudaError_t launch(const void* x, const float* a, const float* inv_b,
   const size_t smem =
       (static_cast<size_t>(kCC) * ((NZ + 12) + 2 * (NZ + 6)) + OB * kCC * K) *
       sizeof(float);
-  auto kernel = act_conv_kernel<T, TY, TO, TTH>;
+  auto kernel = act_conv_kernel<TY, TO, TTH>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Tlen + TB - 1) / TB, (O + OB - 1) / OB, B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), a, inv_b, static_cast<const T*>(w), bias,
-      static_cast<const TY*>(res), static_cast<TY*>(y), taps, C, Tlen, O, K,
-      dil);
+      static_cast<const float*>(x), a, inv_b, static_cast<const float*>(w),
+      bias, static_cast<const TY*>(res), static_cast<TY*>(y), taps, C, Tlen,
+      O, K, dil);
   return cudaGetLastError();
 }
 
-template <typename T, typename TY>
-cudaError_t dispatch(const void* x, const float* a, const float* inv_b,
-                     const void* w, const float* bias, const void* res,
-                     void* y, const Taps& taps, int B, int C, int Tlen, int O,
-                     int K, int dil, cudaStream_t s) {
+template <typename TY>
+cudaError_t dispatch_f32(const void* x, const float* a, const float* inv_b,
+                         const void* w, const float* bias, const void* res,
+                         void* y, const AaTaps& taps, int B, int C, int Tlen,
+                         int O, int K, int dil, cudaStream_t s) {
   if (O <= 32)
-    return launch<T, TY, 4>(x, a, inv_b, w, bias, res, y, taps, B, C, Tlen, O, K, dil, s);
-  return launch<T, TY, 8>(x, a, inv_b, w, bias, res, y, taps, B, C, Tlen, O, K, dil, s);
+    return launch<TY, 4>(x, a, inv_b, w, bias, res, y, taps, B, C, Tlen, O, K, dil, s);
+  return launch<TY, 8>(x, a, inv_b, w, bias, res, y, taps, B, C, Tlen, O, K, dil, s);
+}
+
+// ---- bf16 x and w: the tap GEMM on the tensor cores ----
+
+constexpr int kStages = 3;         // weight tiles in the cp.async ring
+constexpr int kTcThreads = 256;    // 8 warps
+
+template <typename TY>
+__device__ __forceinline__ float2 load_pair(const TY* p) {
+  if constexpr (sizeof(TY) == 4) return *reinterpret_cast<const float2*>(p);
+  else {
+    const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
+    return make_float2(bf16_lo(v), bf16_hi(v));
+  }
+}
+
+template <typename TY>
+__device__ __forceinline__ void store_pair(TY* p, float v0, float v1) {
+  if constexpr (sizeof(TY) == 4) *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+  else *reinterpret_cast<uint32_t*>(p) = pack_bf16(v0, v1);
+}
+
+// BM x BN output tile (channels x time), warps of WM x WN, KC input
+// channels a chunk, activation runs of NR slab rows; slab and weight rows
+// have a pitch of KC + 8 elements
+template <typename TY, int BM, int BN, int WM, int WN, int KC, int NR>
+__global__ void __launch_bounds__(kTcThreads, 2)   // 2 blocks an SM
+act_conv_kernel_tc(const __nv_bfloat16* __restrict__ x,
+                   const float* __restrict__ a,
+                   const float* __restrict__ inv_b,
+                   const __nv_bfloat16* __restrict__ wr,
+                   const float* __restrict__ bias, const TY* __restrict__ res,
+                   TY* __restrict__ y, AaTaps taps, int C, int Cp, int Tlen,
+                   int O, int K, int dil, int vec_x, int vec_y) {
+  constexpr int WARPS_N = BN / WN, MT = WM / 16, NT = WN / 8, P = KC + 8;
+  constexpr int NV = (NR + 11 + 7) / 8;   // 16-byte vectors of an x window
+  static_assert((BM / WM) * WARPS_N * 32 == kTcThreads, "8 warps a block");
+  static_assert(NR % 8 == 0, "runs start where x windows are aligned");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Ws = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kStages][BM][P]
+  const int ca = (K - 1) * dil / 2;   // 'SAME' padding of the conv
+  const int R = BN + 2 * ca;          // slab rows: z at [t0-ca, t0+BN+ca)
+  __nv_bfloat16* Xs = Ws + kStages * BM * P;                        // [2][R][P]
+
+  const int t0 = blockIdx.x * BN, o0 = blockIdx.y * BM, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const __nv_bfloat16* xb = x + static_cast<long long>(b) * C * Tlen;
+  const int nchunks = (C + KC - 1) / KC, J = nchunks * K;
+
+  auto load_w = [&](int jj) {   // tap tile jj = (chunk, tap) into its slot
+    const int i = jj / K, m = jj - i * K;
+    __nv_bfloat16* dst = Ws + (jj % kStages) * BM * P;
+    for (int u = tid; u < BM * (KC / 8); u += kTcThreads) {
+      const int r = u / (KC / 8), seg = u % (KC / 8);
+      const int o = o0 + r, c = i * KC + seg * 8;
+      const bool ok = o < O && c < Cp;
+      cp_async16(dst + r * P + seg * 8,
+                 ok ? wr + (static_cast<long long>(m) * O + o) * Cp + c : wr,
+                 ok);
+    }
+  };
+
+  // The chunk's activation: KC channels x runs of NR slab rows. Runs start
+  // at s0 + NR*k with s0 in (-8, 0] and s0 = ca + 5 (mod 8), so the x
+  // window of every run, [t0-ca+r0-5, +NR+11), starts 8-aligned in time.
+  // Item q is channel q % KC of run q / KC; rounds of 256 items.
+  int s0 = (ca + 5) % 8;
+  if (s0 > 0) s0 -= 8;
+  const int items = KC * ((R - s0 + NR - 1) / NR);
+  const int rounds = (items + kTcThreads - 1) / kTcThreads;
+  auto act_round = [&](int i, int buf, int k) {
+    const int q = k * kTcThreads + tid;
+    if (q >= items) return;
+    const int cl = q % KC, r0 = s0 + q / KC * NR, cc = i * KC + cl;
+    float z[NR];
+    if (cc < C) {
+      const int ts = t0 - ca + r0 - 5;
+      const __nv_bfloat16* src = xb + static_cast<long long>(cc) * Tlen;
+      float xw[NR + 11];
+      if (vec_x && ts >= 0 && ts + 8 * NV <= Tlen) {
+        uint32_t v[4 * NV];
+        load_vec<NV>(v, src + ts);
+#pragma unroll
+        for (int j = 0; j < NR + 11; ++j) xw[j] = word_elem<__nv_bfloat16>(v, j);
+      } else {
+#pragma unroll
+        for (int j = 0; j < NR + 11; ++j)
+          xw[j] = to_f<__nv_bfloat16>(src[min(max(ts + j, 0), Tlen - 1)]);
+      }
+      aa_act<false, false, NR>(xw, a[cc], inv_b[cc], taps, z);
+    } else {   // past C: zeros, which the zero weights of [C, KC) multiply
+#pragma unroll
+      for (int j = 0; j < NR; ++j) z[j] = 0.f;
+    }
+    __nv_bfloat16* dst = Xs + buf * R * P + cl;
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+      const int r = r0 + j, t = t0 - ca + r;
+      if (r >= 0 && r < R)
+        dst[r * P] = __float2bfloat16(t >= 0 && t < Tlen ? z[j] : 0.f);
+    }
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  for (int k = 0; k < rounds; ++k) act_round(0, 0, k);
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < J) load_w(st);
+    cp_async_commit();
+  }
+  for (int jj = 0; jj < J; ++jj) {
+    const int i = jj / K, m = jj - i * K;
+    cp_async_wait<kStages - 2>();
+    __syncthreads();   // tap tile jj and slab i are in shared memory, and
+                       // every warp is done with the slot refilled below
+                       // and with slab i - 1, which the rounds overwrite
+    if (jj + kStages - 1 < J) load_w(jj + kStages - 1);
+    cp_async_commit();
+    tap_mma<MT, NT, KC, P, P>(
+        acc, Ws + ((jj % kStages) * BM + wm * WM) * P,
+        Xs + ((i & 1) * R + wn * WN + m * dil) * P, lane);
+    if (i + 1 < nchunks)   // the rounds of tap m: [ceil(m R/K), ceil((m+1) R/K))
+      for (int k = (m * rounds + K - 1) / K; k < ((m + 1) * rounds + K - 1) / K;
+           ++k)
+        act_round(i + 1, (i + 1) & 1, k);
+  }
+  cp_async_wait<0>();
+
+  // epilogue from the fragments: + bias (+ residual) in fp32, one cast
+  const int g = lane >> 2, qd = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int o = o0 + wm * WM + mt * 16 + g + half * 8;
+      if (o >= O) continue;
+      const float bv = bias != nullptr ? bias[o] : 0.f;
+      const long long row = (static_cast<long long>(b) * O + o) * Tlen;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int t = t0 + wn * WN + nt * 8 + 2 * qd;
+        float v0 = acc[mt][nt][2 * half] + bv;
+        float v1 = acc[mt][nt][2 * half + 1] + bv;
+        if (vec_y && t + 1 < Tlen) {
+          if (res != nullptr) {
+            const float2 r = load_pair<TY>(res + row + t);
+            v0 += r.x;
+            v1 += r.y;
+          }
+          store_pair<TY>(y + row + t, v0, v1);
+        } else {
+          if (t < Tlen) {
+            if (res != nullptr) v0 += to_f<TY>(res[row + t]);
+            y[row + t] = from_f<TY>(v0);
+          }
+          if (t + 1 < Tlen) {
+            if (res != nullptr) v1 += to_f<TY>(res[row + t + 1]);
+            y[row + t + 1] = from_f<TY>(v1);
+          }
+        }
+      }
+    }
+}
+
+template <typename TY, int BM, int BN, int WM, int WN, int KC, int NR>
+cudaError_t launch_tc(const void* x, const float* a, const float* inv_b,
+                      const void* wr, const float* bias, const void* res,
+                      void* y, const AaTaps& taps, int B, int C, int Cp,
+                      int Tlen, int O, int K, int dil, cudaStream_t stream) {
+  const int R = BN + (K - 1) * dil / 2 * 2;
+  const size_t smem = (static_cast<size_t>(kStages) * BM + 2 * static_cast<size_t>(R)) *
+                      (KC + 8) * sizeof(__nv_bfloat16);
+  auto kernel = act_conv_kernel_tc<TY, BM, BN, WM, WN, KC, NR>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Tlen + BN - 1) / BN, (O + BM - 1) / BM, B);
+  const int vec_x = Tlen % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const uintptr_t pair = 2 * sizeof(TY);
+  const int vec_y = Tlen % 2 == 0 && reinterpret_cast<uintptr_t>(y) % pair == 0 &&
+                    reinterpret_cast<uintptr_t>(res) % pair == 0;
+  kernel<<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), a, inv_b,
+      static_cast<const __nv_bfloat16*>(wr), bias,
+      static_cast<const TY*>(res), static_cast<TY*>(y), taps, C, Cp, Tlen, O,
+      K, dil, vec_x, vec_y);
+  return cudaGetLastError();
+}
+
+// the tile configuration by O: kernel B's three tiles, with runs of 8 rows
+// where the 128-row tile's fragments leave fewer registers
+template <typename TY>
+cudaError_t dispatch_tc(const void* x, const float* a, const float* inv_b,
+                        const void* wr, const float* bias, const void* res,
+                        void* y, const AaTaps& taps, int B, int C, int Cp,
+                        int Tlen, int O, int K, int dil, cudaStream_t s) {
+  if (O > 32 && (O <= 64 || O % 128 == 64))   // 48, 192
+    return launch_tc<TY, 64, 128, 32, 32, 64, 16>(
+        x, a, inv_b, wr, bias, res, y, taps, B, C, Cp, Tlen, O, K, dil, s);
+  if (O > 32)   // 96, 384
+    return launch_tc<TY, 128, 128, 64, 32, 32, 8>(
+        x, a, inv_b, wr, bias, res, y, taps, B, C, Cp, Tlen, O, K, dil, s);
+  return launch_tc<TY, 16, 256, 16, 32, 32, 16>(   // 1..32
+      x, a, inv_b, wr, bias, res, y, taps, B, C, Cp, Tlen, O, K, dil, s);
 }
 
 }  // namespace
@@ -203,30 +434,36 @@ cudaError_t dispatch(const void* x, const float* a, const float* inv_b,
 
 // x [B, C, T] and w [O, C, K] (K odd) of type `dtype`, a / inv_b [C] fp32,
 // bias [O] fp32 or null, residual [B, O, T] of type `ydtype` or null, y
-// [B, O, T] of type `ydtype`; taps: 24 floats (2h[2r], 2h[2r+1], h[2r+1],
+// [B, O, T] of type `ydtype`; wr: for bf16, scratch for the reordered
+// weights [K, O, (C+7)/8*8]; taps: 24 floats (2h[2r], 2h[2r+1], h[2r+1],
 // h[2r])
 extern "C" int ditto_act_conv(const void* x, const float* a, const float* inv_b,
-                              const void* w, const float* bias,
+                              const void* w, void* wr, const float* bias,
                               const void* res, void* y, const float* taps,
                               int B, int C, int T, int O, int K, int dil,
                               int dtype, int ydtype, void* stream) {
   using namespace ditto;
-  Taps tp;
+  AaTaps tp;
   for (int r = 0; r < 6; ++r) {
-    tp.eu[r] = taps[r];
-    tp.ou[r] = taps[6 + r];
-    tp.ze[r] = taps[12 + r];
-    tp.zo[r] = taps[18 + r];
+    tp.ue[r] = taps[r];
+    tp.uo[r] = taps[6 + r];
+    tp.de[r] = taps[12 + r];
+    tp.dn[r] = taps[18 + r];
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
   if (dtype == kFloat32 && ydtype == kFloat32)
-    return dispatch<float, float>(x, a, inv_b, w, bias, res, y, tp, B, C, T, O, K, dil, s);
+    return dispatch_f32<float>(x, a, inv_b, w, bias, res, y, tp, B, C, T, O, K, dil, s);
   if (dtype == kFloat32 && ydtype == kBFloat16)
-    return dispatch<float, bf16>(x, a, inv_b, w, bias, res, y, tp, B, C, T, O, K, dil, s);
-  if (dtype == kBFloat16 && ydtype == kFloat32)
-    return dispatch<bf16, float>(x, a, inv_b, w, bias, res, y, tp, B, C, T, O, K, dil, s);
-  if (dtype == kBFloat16 && ydtype == kBFloat16)
-    return dispatch<bf16, bf16>(x, a, inv_b, w, bias, res, y, tp, B, C, T, O, K, dil, s);
+    return dispatch_f32<bf16>(x, a, inv_b, w, bias, res, y, tp, B, C, T, O, K, dil, s);
+  if (dtype != kBFloat16 || wr == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = reorder_weights(w, wr, O, C, K, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int Cp = (C + 7) / 8 * 8;
+  if (ydtype == kFloat32)
+    return dispatch_tc<float>(x, a, inv_b, wr, bias, res, y, tp, B, C, Cp, T, O, K, dil, s);
+  if (ydtype == kBFloat16)
+    return dispatch_tc<bf16>(x, a, inv_b, wr, bias, res, y, tp, B, C, Cp, T, O, K, dil, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -33,7 +33,7 @@
 // is even and x 4-byte aligned, then byte permutes that pair the
 // channels); a warp takes 8 row pairs of 4 channel pairs, so its reads are
 // whole 32-byte sectors and its shared stores meet at most 2 to a bank.
-// The weights are reordered once per call by conv1d_weight_reorder into
+// The weights are reordered once per call by tap_weight_reorder into
 // [K][O][Cp] (C padded with zeros to Cp, a multiple of 8), so each tap's
 // [BM][KC] tile is a cp.async copy; a ring of 3 such tiles keeps two in
 // flight while the tensor cores work. Missing channels and rows are
@@ -165,18 +165,6 @@ cudaError_t dispatch_f32(const void* x, const void* w, const float* bias,
 
 constexpr int kStages = 3;         // weight tiles in the cp.async ring
 constexpr int kTcThreads = 256;    // 8 warps
-
-// wr[m][o][c] = w[o][c][m] for c < C, 0 for C <= c < Cp
-__global__ void conv1d_weight_reorder(const __nv_bfloat16* __restrict__ w,
-                                      __nv_bfloat16* __restrict__ wr, int O,
-                                      int C, int Cp, int K) {
-  const int n = K * O * Cp;   // < 2^31 for every conv the wrapper takes
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    const int c = i % Cp, r = i / Cp, o = r % O, m = r / O;
-    wr[i] = c < C ? w[(o * C + c) * K + m] : __float2bfloat16(0.f);
-  }
-}
 
 template <int BM, int BN, int KC>
 size_t tc_smem_bytes(int halo) {
@@ -396,14 +384,8 @@ extern "C" int ditto_conv1d_bf16(const void* x, const void* w, void* wr,
                                  int Tin, int O, int K, int dil, void* stream) {
   using namespace ditto;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int Cp = (C + 7) / 8 * 8;
-  const int n = K * O * Cp;
-  const int blocks = n / 256 + 1 < 4096 ? n / 256 + 1 : 4096;
-  conv1d_weight_reorder<<<blocks, 256, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(wr),
-      O, C, Cp, K);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = reorder_weights(w, wr, O, C, K, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(
-      dispatch_tc(x, wr, bias, y, B, C, Cp, Tin, O, K, dil, s));
+  return static_cast<int>(dispatch_tc(x, wr, bias, y, B, C, (C + 7) / 8 * 8,
+                                      Tin, O, K, dil, s));
 }

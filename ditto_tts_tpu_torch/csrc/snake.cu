@@ -11,142 +11,125 @@
 // The wrapper passes the (b, c, t) strides of either layout, so the port's
 // [B, C, T] carry and a [B, T, C] view go through without copies.
 //
-// Arithmetic, per channel (a = exp(alpha), inv_b = 1/(exp(beta)+1e-9),
-// h the 12-tap kaiser-sinc low-pass, x replicate-padded by 8 samples):
+// Arithmetic (aa_act.cuh, REV order, as fused_snake_plain): per channel,
+// a = exp(alpha), inv_b = 1/(exp(beta)+1e-9), h the 12-tap kaiser-sinc
+// low-pass, x replicate-padded (the index clamped to [0, T)):
 //   e[u] = sum_m 2h[2m+1] x[u+2-m],   o[u] = sum_m 2h[2m] x[u+3-m]
 //   s(v) = v + inv_b * sin(a*v)^2                       (fp32, sinf)
 //   y[t] = sum_m h[2m+1] s(e)[t+m-2] + h[2m] s(o)[t+m-3]   (fp32)
 // stored in x's type. The two Pallas kernels differ in the upsample taps:
 // fused_snake_nlc casts x to fp32 first (UP_X = false); fused_snake_pallas
-// multiplies in x's type (UP_X = true): taps and products are rounded to
-// x's type and so is the running sum after each add but the last (the
-// last sum feeds the fp32 snake, and XLA keeps it in fp32). The Pallas
-// kernels' pi-periodic polynomial sin^2 (ops/fastmath.py) was a Mosaic
-// workaround; sinf is exact to an ulp, and a*v is not range-limited, so
-// not __sinf.
+// multiplies in x's type (UP_X = true): taps, products and each running sum
+// but the last are rounded to x's type. The Pallas kernels' pi-periodic
+// polynomial sin^2 (ops/fastmath.py) was a Mosaic workaround; this kernel
+// uses sinf (they differ by <= ~5e-7).
 //
 // What bounds it on an H100: ~56 fp32 operations per sample against the
 // 2 * sizeof(T) bytes of one read and one write: at 67 TFLOP/s fp32 and
 // 3.35 TB/s that is memory bound (bf16: 0.84 ps/sample of operations
-// against 1.19 ps of bytes). The design reads x once from device memory
-// (the 8-sample halo comes from L2), keeps the phases in shared memory and
-// writes y once.
+// against 1.19 ps of bytes), but only if each sample costs few issued
+// instructions: the card issues ~3e13 thread instructions a second, so a
+// bf16 sample at the byte bound may take ~35.
 //
-// Design: a block owns CG channels x TT time steps of one batch row. It
-// stages the tile plus the 8-sample halo on each side in shared memory as
-// fp32 (the index clamped to [0, T): the replicate pad), evaluates the two
-// upsample phases and the snake for the TT+8 phase rows the decimation
-// needs, then decimates. Shared memory and the thread-to-element map
-// follow the tensor's minor dimension (TIME_MINOR: time for [B, C, T],
-// channels for [B, T, C]), so neighbouring threads read neighbouring
-// addresses in device memory and in distinct shared-memory banks.
+// Design: no shared memory and no barrier. Each thread owns a run of N = 16
+// consecutive outputs of one channel, holds x over the run and its 5-sample
+// halos in registers and evaluates the whole activation there (aa_act.cuh),
+// so each phase row is computed once per run (21 rows for 16 outputs).
+//   time-minor ([B, C, T], every launch on the serving paths): neighbouring
+//     lanes own neighbouring runs of one channel; a thread reads x over
+//     [t0-8, t0+24) with 16-byte loads (the halo overlaps its neighbours',
+//     from L1) and writes its run with 16-byte stores;
+//   channel-minor ([B, T, C] views): neighbouring lanes own one run of
+//     neighbouring channels, so each scalar load and store of a warp is
+//     contiguous across channels.
+// A run at either end of T, shorter than one run, or a tensor whose rows
+// are not 16-byte aligned (a storage offset, an odd stride) takes scalar
+// loads and stores with the clamped index, in the same kernel.
 
-#include "common.cuh"
+#include "aa_act.cuh"
 
 namespace ditto {
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kHalo = 8;
+constexpr int kRun = 16;   // outputs per thread
 
-struct SnakeTaps {
-  float he[6], ho[6], ge[6], go[6];  // 2h[2m+1], 2h[2m], h[2m+1], h[2m]
-};
-
-template <typename T, bool UP_X>
-__device__ __forceinline__ float up_phase(const float* xr, int step,
-                                          const float* taps) {
-  // sum_m taps[m] * xr[-m*step], in the order of the Pallas kernel
-  if (UP_X) {
-    float acc = round_to<T>(round_to<T>(taps[0]) * xr[0]);
-#pragma unroll
-    for (int m = 1; m < 5; ++m)
-      acc = round_to<T>(acc + round_to<T>(round_to<T>(taps[m]) * xr[-m * step]));
-    return acc + round_to<T>(round_to<T>(taps[5]) * xr[-5 * step]);
-  }
-  float acc = taps[0] * xr[0];
-#pragma unroll
-  for (int m = 1; m < 6; ++m) acc = acc + taps[m] * xr[-m * step];
-  return acc;
-}
-
-template <typename T, bool UP_X, bool TIME_MINOR, int CG, int TT>
+template <typename T, bool UP_X, bool TIME_MINOR>
 __global__ void __launch_bounds__(kThreads)
 snake_kernel(const T* __restrict__ x, const float* __restrict__ a,
              const float* __restrict__ inv_b, T* __restrict__ y,
-             SnakeTaps taps, int C, int Tlen, long long xsb, long long xsc,
-             long long xst, long long ysb, long long ysc, long long yst) {
-  constexpr int NX = TT + 2 * kHalo;  // x rows  [t0-8, t0+TT+8)
-  constexpr int NP = TT + 8;          // phase rows [t0-4, t0+TT+4)
-  // element (c, j) of a [CG][N] tile sits at c*N + j (TIME_MINOR) or
-  // j*CG + c, so that linear index i walks the tensor's minor dimension
-  constexpr int XC = TIME_MINOR ? NX : 1, PC = TIME_MINOR ? NP : 1;
-  constexpr int STEP = TIME_MINOR ? 1 : CG;
-  __shared__ float xs[CG * NX];
-  __shared__ float se[CG * NP];
-  __shared__ float so[CG * NP];
-
-  const int t0 = blockIdx.x * TT, c0 = blockIdx.y * CG;
-  const long long b = blockIdx.z;
+             AaTaps taps, int C, int Tlen, long long xsb, long long xsc,
+             long long xst, long long ysb, long long ysc, long long yst,
+             int vec_x, int vec_y) {
+  constexpr int E = 16 / sizeof(T);           // elements per 16-byte vector
+  constexpr int NW = kRun + 16;               // the vector window [t0-8, t0+24)
   const int tid = threadIdx.x;
+  const int c = TIME_MINOR ? blockIdx.y : blockIdx.y * 32 + (tid & 31);
+  const int t0 = TIME_MINOR ? (blockIdx.x * kThreads + tid) * kRun
+                            : (blockIdx.x * (kThreads / 32) + (tid >> 5)) * kRun;
+  if (c >= C || t0 >= Tlen) return;
+  const long long b = blockIdx.z;
+  const T* xr = x + b * xsb + c * xsc;
+  T* yr = y + b * ysb + c * ysc;
 
-  for (int i = tid; i < CG * NX; i += kThreads) {
-    const int c = TIME_MINOR ? i / NX : i % CG;
-    const int j = TIME_MINOR ? i % NX : i / CG;
-    const int cc = c0 + c;
-    const int t = min(max(t0 - kHalo + j, 0), Tlen - 1);
-    xs[i] = cc < C ? to_f<T>(x[b * xsb + cc * xsc + t * xst]) : 0.f;
-  }
-  __syncthreads();
-  for (int i = tid; i < CG * NP; i += kThreads) {
-    const int c = TIME_MINOR ? i / NP : i % CG;
-    const int u = TIME_MINOR ? i % NP : i / CG;
-    const int cc = c0 + c;
-    // phase row u is sample t0-4+u; e reads x[u+2-m], o x[u+3-m]: tile
-    // rows u+6-m and u+7-m
-    const float* xr = xs + c * XC + u * STEP;
-    const float e = up_phase<T, UP_X>(xr + 6 * STEP, STEP, taps.he);
-    const float o = up_phase<T, UP_X>(xr + 7 * STEP, STEP, taps.ho);
-    const float av = cc < C ? a[cc] : 0.f;
-    const float ib = cc < C ? inv_b[cc] : 0.f;
-    const float s1 = sinf(av * e), s2 = sinf(av * o);
-    se[i] = e + ib * (s1 * s1);
-    so[i] = o + ib * (s2 * s2);
-  }
-  __syncthreads();
-  for (int i = tid; i < CG * TT; i += kThreads) {
-    const int c = TIME_MINOR ? i / TT : i % CG;
-    const int j = TIME_MINOR ? i % TT : i / CG;
-    const int cc = c0 + c, t = t0 + j;
-    if (cc >= C || t >= Tlen) continue;
-    // s(e) at t+m-2 is phase row j+m+2, s(o) at t+m-3 row j+m+1
-    const float* ser = se + c * PC + (j + 2) * STEP;
-    const float* sor = so + c * PC + (j + 1) * STEP;
-    float acc = taps.ge[0] * ser[0] + taps.go[0] * sor[0];
+  float w[kRun + 11];   // x[t0 - 5 + i]
+  if (TIME_MINOR && vec_x && t0 >= 8 && t0 + kRun + 8 <= Tlen) {
+    uint32_t v[NW * sizeof(T) / 4];
+    load_vec<NW / E>(v, xr + t0 - 8);
 #pragma unroll
-    for (int m = 1; m < 6; ++m)
-      acc = acc + taps.ge[m] * ser[m * STEP] + taps.go[m] * sor[m * STEP];
-    y[b * ysb + cc * ysc + t * yst] = from_f<T>(acc);
+    for (int i = 0; i < kRun + 11; ++i) w[i] = word_elem<T>(v, i + 3);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kRun + 11; ++i) {
+      const int t = min(max(t0 - 5 + i, 0), Tlen - 1);
+      w[i] = to_f<T>(xr[t * xst]);
+    }
   }
+  float out[kRun];
+  aa_act<UP_X, true, kRun>(w, a[c], inv_b[c], taps, out);
+
+  if (TIME_MINOR && vec_y && t0 + kRun <= Tlen) {
+    uint32_t v[kRun * sizeof(T) / 4];
+#pragma unroll
+    for (int k = 0; k < kRun * static_cast<int>(sizeof(T)) / 4; ++k) {
+      if constexpr (sizeof(T) == 4) v[k] = __float_as_uint(out[k]);
+      else v[k] = pack_bf16(out[2 * k], out[2 * k + 1]);
+    }
+    store_vec<kRun / E>(yr + t0, v);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kRun; ++j)
+      if (t0 + j < Tlen) yr[(t0 + j) * yst] = from_f<T>(out[j]);
+  }
+}
+
+// x's rows are 16-byte vectors: unit time stride, every row start aligned
+template <typename T>
+int rows_aligned(const void* p, const long long* s) {
+  constexpr long long E = 16 / sizeof(T);
+  return s[2] == 1 && s[1] % E == 0 && s[0] % E == 0 &&
+         reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 template <typename T, bool UP_X>
 cudaError_t launch(const void* x, const float* a, const float* inv_b, void* y,
-                   const SnakeTaps& taps, int B, int C, int Tlen,
+                   const AaTaps& taps, int B, int C, int Tlen,
                    const long long* xs, const long long* ys, bool time_minor,
                    cudaStream_t s) {
   const T* xp = static_cast<const T*>(x);
   T* yp = static_cast<T*>(y);
+  const int vx = rows_aligned<T>(x, xs), vy = rows_aligned<T>(y, ys);
   if (time_minor) {
-    constexpr int CG = 4, TT = 512;
-    const dim3 grid((Tlen + TT - 1) / TT, (C + CG - 1) / CG, B);
-    snake_kernel<T, UP_X, true, CG, TT><<<grid, kThreads, 0, s>>>(
-        xp, a, inv_b, yp, taps, C, Tlen, xs[0], xs[1], xs[2], ys[0], ys[1], ys[2]);
+    const dim3 grid((Tlen + kThreads * kRun - 1) / (kThreads * kRun), C, B);
+    snake_kernel<T, UP_X, true><<<grid, kThreads, 0, s>>>(
+        xp, a, inv_b, yp, taps, C, Tlen, xs[0], xs[1], xs[2], ys[0], ys[1],
+        ys[2], vx, vy);
   } else {
-    constexpr int CG = 32, TT = 64;
-    const dim3 grid((Tlen + TT - 1) / TT, (C + CG - 1) / CG, B);
-    snake_kernel<T, UP_X, false, CG, TT><<<grid, kThreads, 0, s>>>(
-        xp, a, inv_b, yp, taps, C, Tlen, xs[0], xs[1], xs[2], ys[0], ys[1], ys[2]);
+    constexpr int TB = kThreads / 32 * kRun;
+    const dim3 grid((Tlen + TB - 1) / TB, (C + 31) / 32, B);
+    snake_kernel<T, UP_X, false><<<grid, kThreads, 0, s>>>(
+        xp, a, inv_b, yp, taps, C, Tlen, xs[0], xs[1], xs[2], ys[0], ys[1],
+        ys[2], vx, vy);
   }
   return cudaGetLastError();
 }
@@ -163,18 +146,20 @@ extern "C" int ditto_snake(const void* x, const float* a, const float* inv_b,
                            const long long* xs, const long long* ys,
                            int up_x, int time_minor, int dtype, void* stream) {
   using namespace ditto;
-  SnakeTaps tp;
+  AaTaps tp;
   for (int m = 0; m < 6; ++m) {
-    tp.he[m] = taps[m];
-    tp.ho[m] = taps[6 + m];
-    tp.ge[m] = taps[12 + m];
-    tp.go[m] = taps[18 + m];
+    tp.ue[m] = taps[m];
+    tp.uo[m] = taps[6 + m];
+    tp.de[m] = taps[12 + m];
+    tp.dn[m] = taps[18 + m];
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool tm = time_minor != 0;
+  if (B > 65535 || C > 65535)   // grid.y / grid.z
+    return static_cast<int>(cudaErrorInvalidValue);
+  // fp32 x: rounding to x's type is exact, so #8 and #9 are one function
   if (dtype == kFloat32)
-    return up_x ? launch<float, true>(x, a, inv_b, y, tp, B, C, T, xs, ys, tm, s)
-                : launch<float, false>(x, a, inv_b, y, tp, B, C, T, xs, ys, tm, s);
+    return launch<float, false>(x, a, inv_b, y, tp, B, C, T, xs, ys, tm, s);
   if (dtype == kBFloat16)
     return up_x ? launch<__nv_bfloat16, true>(x, a, inv_b, y, tp, B, C, T, xs, ys, tm, s)
                 : launch<__nv_bfloat16, false>(x, a, inv_b, y, tp, B, C, T, xs, ys, tm, s);

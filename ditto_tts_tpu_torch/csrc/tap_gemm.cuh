@@ -1,5 +1,6 @@
 // The tap contraction of a VALID dilated conv on the tensor cores, shared
-// by the bf16 kernels that run it (kernel B, conv1d.cu).
+// by the bf16 kernels that run it (kernel B, conv1d.cu; kernel C,
+// act_conv.cu), and the reorder of their weights into per-tap tiles.
 //
 //   y[o, t] += sum_{c in chunk} w_m[o, c] * x[c, t + m*dil]   (one tap m)
 //
@@ -13,6 +14,8 @@
 // A pitch of KC + 8 bf16 elements (an odd multiple of 16 bytes) keeps the
 // 8 rows of each ldmatrix on 8 different bank groups for every shift.
 #pragma once
+
+#include <cuda_runtime.h>
 
 #include "mma.cuh"
 
@@ -46,6 +49,31 @@ __device__ __forceinline__ void tap_mma(float (&acc)[MT][NT][4],
       }
     }
   }
+}
+
+// wr[m][o][c] = w[o][c][m] for c < C, 0 for C <= c < Cp: each tap's
+// [O][Cp] weights contiguous, so a tap tile is a 16-byte cp.async copy
+__global__ void tap_weight_reorder(const __nv_bfloat16* __restrict__ w,
+                                   __nv_bfloat16* __restrict__ wr, int O,
+                                   int C, int Cp, int K) {
+  const int n = K * O * Cp;   // < 2^31 for every conv the wrappers take
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    const int c = i % Cp, r = i / Cp, o = r % O, m = r / O;
+    wr[i] = c < C ? w[(o * C + c) * K + m] : __float2bfloat16(0.f);
+  }
+}
+
+// reorder w [O, C, K] into wr [K, O, Cp] (Cp = C rounded up to 8) on s
+inline cudaError_t reorder_weights(const void* w, void* wr, int O, int C,
+                                   int K, cudaStream_t s) {
+  const int Cp = (C + 7) / 8 * 8;
+  const int n = K * O * Cp;
+  const int blocks = n / 256 + 1 < 4096 ? n / 256 + 1 : 4096;
+  tap_weight_reorder<<<blocks, 256, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(wr),
+      O, C, Cp, K);
+  return cudaGetLastError();
 }
 
 }  // namespace ditto

@@ -1,20 +1,26 @@
-"""Kernels A and B at every bf16 shape of the serving path, on the card.
+"""Kernels A, B, C and D at every bf16 shape of the serving paths, on the
+card.
 
     python -m ditto_tts_tpu_torch.kernel_bench [--json FILE]
 
-For each shape of ``ATTN_SHAPES`` and ``CONV_SHAPES`` (the 10 s / 20 s
-buckets at B=4): the kernel's ms (CUDA events over repeated launches, warm
-L2), the ms of one PyTorch call that computes the same function
+For each shape of ``ATTN_SHAPES``, ``CONV_SHAPES``, ``ACT_CONV_SHAPES`` and
+``SNAKE_SHAPES`` (the 10 s / 20 s buckets at B=4): the kernel's ms (device
+time of a replayed CUDA graph, warm L2), the ms of one PyTorch call that
+computes the same function where there is one
 (``scaled_dot_product_attention``; ``F.conv1d`` in bf16), used nowhere in
 the port, the bound (the larger of the bytes over 3.35 TB/s and the
-operations over 989 TFLOP/s) and max |kernel - plain| / max |plain|.
+operations over 989 TFLOP/s, or 67 TFLOP/s for D's fp32 arithmetic) and
+max |kernel - plain| / max |plain|. Kernel C has no such library call; its
+rows carry instead the port's own two-pass composition of the same
+function (kernel D with fp32 taps -> zero pad -> kernel B, plus the
+residual) and ``F.conv1d`` on the activated, padded signal alone.
 
 It calls only the wrappers' public names (``attention_cuda``,
-``conv1d_cuda`` and their plain versions), so a copy of this file in an
-older checkout's package times that checkout's kernels: two versions are
-compared in one call on one card by running both, in turns.
-``chip_smoke.py`` phase 3 runs the same shapes through ``run_attention`` and
-``run_conv``. Needs one CUDA card.
+``conv1d_cuda``, ``aa_snake_conv1d_cuda``, ``fused_snake_cuda`` and their
+plain versions), so a copy of this file in an older checkout's package
+times that checkout's kernels: two versions are compared in one call on one
+card by running both, in turns. ``chip_smoke.py`` phase 3 runs the A and B
+shapes through ``run_attention`` and ``run_conv``. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -63,6 +69,31 @@ CONV_SHAPES = (
     ("fp amp192 k11 d5", 4, 192, 29984, 192, 11, 5),
     ("fp amp96 k11 d5", 4, 96, 59968, 96, 11, 5),
     ("#4 bf16", 8, 32, 240000, 32, 3, 1),
+)
+
+# (label, B, C, T, K, dil, residual): kernel C (C = O) on the default path's
+# NLC stages of one 10 s request at B=4 (per width and K: dil 1 four times,
+# dil 3 and 5 once each), and on phase 7's aa_impl="fused_ncl" stages (48 x
+# 120064, 24 x 240128), where the dil-1 convs carry the residual
+ACT_CONV_SHAPES = tuple(
+    (f"amp{c} k{k} d{d}", 4, c, t, k, d, False)
+    for c, t in ((384, 14992), (192, 29984), (96, 59968))
+    for k in (3, 7, 11) for d in (1, 5)) + tuple(
+    (f"ncl{c} k{k} d{d}" + (" +res" if d == 1 else ""), 4, c, t, k, d,
+     d == 1)
+    for c, t in ((48, 120064), (24, 240128))
+    for k in (3, 7, 11) for d in (1, 5))
+
+# (label, B, C, T, up_x): kernel D under aa_impl="fused_pallas", one 10 s
+# request at B=4: #9 (fp32 upsample taps) on the NLC stages, #8 (taps in
+# x's type) on the NCL-hybrid ones; 18 launches at each shape
+SNAKE_SHAPES = (
+    ("#9 768", 4, 768, 3748, False),
+    ("#9 384", 4, 384, 14992, False),
+    ("#9 192", 4, 192, 29984, False),
+    ("#9 96", 4, 96, 59968, False),
+    ("#8 48", 4, 48, 119936, True),
+    ("#8 24", 4, 24, 239872, True),
 )
 
 
@@ -133,17 +164,28 @@ def _rel_err(torch, got, want) -> tuple:
     return err, err / scale
 
 
-def _row(torch, label, shape, fn, library, flops, nb, err, rel):
-    """One shape: the kernel's and the library call's device ms (CUDA
-    graph), the kernel's ms per eager call (with the host's launch cost),
-    the bound, the error."""
+def _row(torch, label, shape, fn, library, flops, nb, err, rel,
+         peak=PEAK_BF16):
+    """One shape: the kernel's and the library call's (None: there is
+    none) device ms (CUDA graph), the kernel's ms per eager call (with the
+    host's launch cost), the bound, the error."""
     ms = cuda_ms(torch, fn)
-    b, by = bound_ms(flops, nb)
+    b, by = bound_ms(flops, nb, peak)
     return {"label": label, "shape": shape, "ms": ms,
             "call_ms": eager_ms(torch, fn),
-            "library_ms": cuda_ms(torch, library), "bound_ms": b,
+            "library_ms": None if library is None
+            else cuda_ms(torch, library), "bound_ms": b,
             "bound_by": by, "tflops": flops / ms / 1e9, "max_abs_err": err,
             "rel_err": rel}
+
+
+def _snake_coeffs(torch, gen, c):
+    """Per-channel (a, inv_b) of a SnakeBeta with alpha, beta ~ 0.3 N(0, 1)
+    (the range ``snake_coeffs`` gives the vocoder's parameters)."""
+    a = torch.exp(0.3 * torch.randn(c, generator=gen, device="cuda"))
+    inv_b = 1.0 / (torch.exp(0.3 * torch.randn(c, generator=gen,
+                                               device="cuda")) + 1e-9)
+    return a, inv_b
 
 
 def run_attention(torch, gen, compare=None):
@@ -198,10 +240,92 @@ def run_conv(torch, gen, compare=None):
     return rows
 
 
+def run_act_conv(torch, gen, compare=None):
+    """Rows for ACT_CONV_SHAPES in bf16, as ``run_conv``, each with
+    ``two_pass_ms`` (kernel D in #9 mode, whose output in x's type is C's
+    rounding of the activation, -> zero pad -> kernel B -> + residual) and
+    ``conv_on_z_ms`` (``F.conv1d`` on that padded activation)."""
+    import torch.nn.functional as F
+    from .ops import act_conv as C, conv as B, snake_fused as D
+    rows = []
+    for label, b, c, t, k, dil, residual in ACT_CONV_SHAPES:
+        x = (2.0 * torch.randn(b, c, t, generator=gen,
+                               device="cuda")).bfloat16()
+        a, inv_b = _snake_coeffs(torch, gen, c)
+        w = ((c * k) ** -0.5 * torch.randn(c, c, k, generator=gen,
+                                           device="cuda")).bfloat16()
+        bias = torch.randn(c, generator=gen, device="cuda")
+        res = torch.randn(b, c, t, generator=gen, device="cuda").bfloat16() \
+            if residual else None
+        got = C.aa_snake_conv1d_cuda(x, a, inv_b, w, bias, dilation=dil,
+                                     residual=res)
+        want = C.aa_snake_conv1d_plain(x, a, inv_b, w, bias, dilation=dil,
+                                       residual=res)
+        if compare is not None:
+            compare(f"{label} B{b} C=O={c} T{t} K{k} dil{dil}", got, want)
+        err, rel = _rel_err(torch, got, want)
+        del want
+        ca = (k - 1) * dil // 2
+
+        def two_pass():
+            z = D.fused_snake_cuda(x, a, inv_b, up_in_x_dtype=False)
+            y = B.conv1d_cuda(F.pad(z, (ca, ca)), w, bias, dilation=dil)
+            return y if res is None else y + res
+
+        zp = F.pad(D.fused_snake_cuda(x, a, inv_b, up_in_x_dtype=False),
+                   (ca, ca))
+        bias16 = bias.bfloat16()
+        shape = (f"bf16 B={b} C=O={c} K={k} dil={dil} T={t}"
+                 + (" +residual" if residual else "") + f" ({label})")
+        row = _row(torch, label, shape,
+                   lambda: C.aa_snake_conv1d_cuda(x, a, inv_b, w, bias,
+                                                  dilation=dil, residual=res),
+                   None, 2.0 * b * c * c * k * t + 56.0 * b * c * t,
+                   _nbytes(x, a, inv_b, w, bias, res, got), err, rel)
+        row["two_pass_ms"] = cuda_ms(torch, two_pass)
+        row["conv_on_z_ms"] = cuda_ms(
+            torch, lambda: F.conv1d(zp, w, bias16, dilation=dil))
+        rows.append(row)
+        del x, zp, res, got
+    return rows
+
+
+def run_snake(torch, gen, compare=None):
+    """Rows for SNAKE_SHAPES in bf16 on the [B, C, T] carry, as
+    ``run_conv``; no library call computes the function."""
+    from .ops import snake_fused as D
+    rows = []
+    for label, b, c, t, up_x in SNAKE_SHAPES:
+        x = (2.0 * torch.randn(b, c, t, generator=gen,
+                               device="cuda")).bfloat16()
+        a, inv_b = _snake_coeffs(torch, gen, c)
+        got = D.fused_snake_cuda(x, a, inv_b, up_in_x_dtype=up_x)
+        want = D.fused_snake_plain(x, a, inv_b, up_in_x_dtype=up_x)
+        if compare is not None:
+            compare(f"{label} B{b} C{c} T{t}", got, want)
+        err, rel = _rel_err(torch, got, want)
+        del want
+        rows.append(_row(torch, label, f"bf16 B={b} C={c} T={t} ({label})",
+                         lambda: D.fused_snake_cuda(x, a, inv_b,
+                                                    up_in_x_dtype=up_x),
+                         None, 55.0 * x.numel(), _nbytes(x, a, inv_b, got),
+                         err, rel, PEAK_FP32))
+    return rows
+
+
+RUNS = {"attention": run_attention, "conv1d": run_conv,
+        "act_conv": run_act_conv, "snake": run_snake}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", default=None, help="write the rows here")
+    ap.add_argument("--kernels", default=",".join(RUNS),
+                    help="comma-separated subset of " + ", ".join(RUNS))
     args = ap.parse_args(argv)
+    kinds = args.kernels.split(",")
+    if not set(kinds) <= set(RUNS):
+        ap.error(f"--kernels: choose from {', '.join(RUNS)}")
     import torch
     from . import kernels
     if not torch.cuda.is_available():
@@ -214,30 +338,31 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     kernels.build()
-    for name in ("attention", "conv1d"):
-        mma = getattr(kernels, "sass_mma_counts", lambda n: None)(name)
-        for fn, regs, st, ld in getattr(kernels, "ptxas_report",
-                                        lambda n: [])(name):
+    for name in kinds:
+        mma = kernels.sass_mma_counts(name)
+        for fn, regs, st, ld in kernels.ptxas_report(name):
             print(f"[{name}] {fn[:100]}: {regs} registers, spill {st}/{ld} "
                   f"B, HMMA {None if mma is None else mma.get(fn)}")
     gen = torch.Generator(device="cuda").manual_seed(1234)
     big = torch.empty(4 * 24 * 239878, dtype=torch.bfloat16, device="cuda")
     dst = torch.empty_like(big)
     copy_ms = cuda_ms(torch, lambda: dst.copy_(big))
+    del big, dst
     out = {"card": card, "torch": torch.__version__,
            "copy_46MB": {"ms": copy_ms,
-                         "GB_per_s": 2 * big.numel() * 2 / copy_ms / 1e6},
-           "attention": run_attention(torch, gen),
-           "conv1d": run_conv(torch, gen)}
+                         "GB_per_s": 2 * 4 * 24 * 239878 * 2 / copy_ms / 1e6}}
     print(card)
     print(f"device copy of 46 MB (the narrow stages' x): {copy_ms:.4f} ms, "
           f"{out['copy_46MB']['GB_per_s']:.0f} GB/s read + written")
-    for kind in ("attention", "conv1d"):
+    for kind in kinds:
+        out[kind] = RUNS[kind](torch, gen)
         for r in out[kind]:
             lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+            extra = "".join(f"  {k[:-3]} {r[k]:.4f}" for k in
+                            ("two_pass_ms", "conv_on_z_ms") if k in r)
             print(f"{kind:9s} {r['label']:18s} {r['ms']:9.4f} ms (eager "
-                  f"{r.get('call_ms', float('nan')):.4f})  library "
-                  f"{lib:>8s}  bound {r['bound_ms']:.4f} ({r['bound_by']})  "
+                  f"{r['call_ms']:.4f})  library {lib:>8s}{extra}  bound "
+                  f"{r['bound_ms']:.4f} ({r['bound_by']})  "
                   f"{r['tflops']:7.1f} TFLOP/s  rel err {r['rel_err']:.2e}",
                   flush=True)
     if args.json:

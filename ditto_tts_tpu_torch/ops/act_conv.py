@@ -89,7 +89,7 @@ def aa_snake_conv1d_plain(x, a, inv_b, weight, bias=None, *,
     return acc.to(out_dtype or x.dtype)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_float)] \
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_float)] \
     + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
@@ -97,7 +97,9 @@ def aa_snake_conv1d_cuda(x, a, inv_b, weight, bias=None, *,
                          dilation: int = 1, residual=None, out_dtype=None):
     """Kernel C; the operands of ``aa_snake_conv1d_plain``, contiguous, on
     one CUDA device, x and w fp32 or bf16 of one type, K odd and <= 11,
-    the residual (if any) of the output type."""
+    the residual (if any) of the output type. bf16 runs the tap GEMM on
+    the tensor cores (after a reorder of the weights to [K, O, C] inside
+    the same call), fp32 the CUDA-core kernel."""
     out_dtype = out_dtype or x.dtype
     tensors = tuple(v for v in (x, a, inv_b, weight, bias, residual)
                     if v is not None)
@@ -124,10 +126,20 @@ def aa_snake_conv1d_cuda(x, a, inv_b, weight, bias=None, *,
         raise ValueError(f"act_conv: residual must be {out_dtype} of shape "
                          f"{(b, o, t)}, got {residual.dtype} "
                          f"{tuple(residual.shape)}")
+    wr = None
+    if x.dtype == torch.bfloat16:
+        # scratch for the weights reordered to [K, O, C padded to 8], which
+        # the kernel indexes with 32-bit ints
+        cp = -(-c // 8) * 8
+        if k * o * cp >= 2 ** 31:
+            raise ValueError(f"act_conv: weight {tuple(weight.shape)} too "
+                             "large")
+        wr = torch.empty((k, o, cp), dtype=x.dtype, device=x.device)
     y = torch.empty((b, o, t), dtype=out_dtype, device=x.device)
     taps = fused_taps()
     fn = kernels.function("act_conv", "ditto_act_conv", _ARGTYPES)
     err = fn(x.data_ptr(), a.data_ptr(), inv_b.data_ptr(), weight.data_ptr(),
+             None if wr is None else wr.data_ptr(),
              None if bias is None else bias.data_ptr(),
              None if residual is None else residual.data_ptr(), y.data_ptr(),
              taps.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),

@@ -29,7 +29,7 @@ from pathlib import Path
 GROUPS = (   # (group, substrings of a kernel name), first match wins
     ("A attention", ("attn_kernel",)),          # attn_kernel, _tc
     ("B conv1d", ("conv1d_kernel",)),           # conv1d_kernel, _tc
-    ("B weight reorder", ("conv1d_weight_reorder",)),
+    ("B, C weight reorder", ("weight_reorder",)),
     ("C act_conv", ("act_conv_kernel",)),
     ("D snake", ("snake_kernel",)),
     ("gemm", ("gemm", "xmma", "cutlass", "cublas", "sm90_", "nvjet")),

@@ -18,9 +18,13 @@ from ditto_tts_tpu.ops.act_conv_pallas import aa_snake_conv1d as jfused
 from ditto_tts_tpu.ops.act_conv_pallas import aa_snake_conv1d_ncl as jfused_ncl
 from ditto_tts_tpu.ops import snake as jsnake
 
+import torch.nn.functional as F
+
 from ditto_tts_tpu_torch.ops import snake as tsnake
 from ditto_tts_tpu_torch.ops.act_conv import aa_snake_conv1d, \
-    aa_snake_conv1d_ncl
+    aa_snake_conv1d_ncl, aa_snake_conv1d_plain
+from ditto_tts_tpu_torch.ops.conv import conv1d_plain
+from ditto_tts_tpu_torch.ops.snake_fused import fused_snake_plain
 
 from _torch_port_util import assert_close, jx, tt
 
@@ -167,6 +171,37 @@ def test_ncl_short_sequence_takes_the_unfused_form():
     got, want = _both_ncl(x.transpose(0, 2, 1).copy(), alpha, be, w, bv, 12,
                           res)
     assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("beta", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_equals_its_two_pass_composition(dtype, beta):
+    """Kernel C's function is kernel D's #9 function (fp32 upsample taps,
+    the result in x's type, which is C's rounding of the activation),
+    zero-padded by the conv's 'SAME' halo, then the VALID conv: the two-pass
+    composition that is C's yardstick on the card (``kernel_bench.py``).
+    fp32 1e-5 absolute (the two sum the activation in other orders); bf16
+    1e-2 of max |y| (an order difference can flip a bf16 rounding of z)."""
+    rng = np.random.default_rng(20)
+    c, t, k, dil = 96, 300, 11, 5
+    x = tt(2.0 * rng.standard_normal((2, c, t)).astype(np.float32)).to(dtype)
+    alpha = tt((0.3 * rng.standard_normal(c)).astype(np.float32))
+    be = tt((0.3 * rng.standard_normal(c)).astype(np.float32)) if beta \
+        else None
+    a, inv_b = tsnake.snake_coeffs(alpha, be)
+    w = tt(((c * k) ** -0.5 * rng.standard_normal((c, c, k))).astype(
+        np.float32)).to(dtype)
+    bias = tt(rng.standard_normal(c).astype(np.float32))
+    got = aa_snake_conv1d_plain(x, a, inv_b, w, bias, dilation=dil)
+    ca = (k - 1) * dil // 2
+    z = fused_snake_plain(x, a, inv_b, up_in_x_dtype=False)
+    want = conv1d_plain(F.pad(z, (ca, ca)), w, bias, dilation=dil)
+    assert got.dtype == want.dtype == dtype
+    err = (got.float() - want.float()).abs().max().item()
+    if dtype == torch.float32:
+        assert err <= 1e-5, err
+    else:
+        assert err <= 1e-2 * want.float().abs().max().item(), err
 
 
 @pytest.mark.parametrize("bf16", [False, True])

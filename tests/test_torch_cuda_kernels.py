@@ -11,9 +11,10 @@ cannot load:
 
 Tolerance: max |kernel - plain| <= tol * max |plain|, tol 2e-5 in fp32
 (another summation order) and 1e-2 in bf16 (a few bf16 ulps). The bf16
-kernels A and B run on the tensor cores in tiles of 64 keys / 16 query
+kernels A, B and C run on the tensor cores in tiles of 64 keys / 16 query
 rows a warp and 32 input channels x 16..128 output channels x 128..256
-time steps, so the edge cases sit on either side of those tiles.
+time steps, and kernel D in runs of 16 samples a thread, so the edge
+cases sit on either side of those tiles and runs.
 """
 
 import pytest
@@ -188,6 +189,50 @@ def test_act_conv_kernel_residual(gen, dtype, ydtype, b, c, t, o, k, dil):
                                           residual=res, out_dtype=ydtype),
                torch.bfloat16 if torch.bfloat16 in (dtype, ydtype)
                else torch.float32)
+
+
+@pytest.mark.parametrize("ydtype", DTYPES)
+@pytest.mark.parametrize("b,c,t,o,k,dil", [
+    (1, 40, 300, 70, 7, 3),      # T, O and C off the 128 x 128 tile, chunk
+    (2, 100, 257, 200, 11, 5),   # O past one 128-row tile
+    (1, 70, 129, 48, 3, 1),      # the 64-row tile, C past one 64 chunk
+    (1, 24, 65, 24, 11, 5),      # T just above aa_snake_conv1d's gate
+    (1, 48, 129, 48, 11, 5),     # T just above aa_snake_conv1d_ncl's gate
+    (1, 33, 1000, 24, 3, 1)])    # the 16 x 256 tile, C past one chunk
+def test_act_conv_kernel_tc_tile_edges(gen, ydtype, b, c, t, o, k, dil):
+    """Kernel C's tensor-core path at the edges of its tiles (BM x BN of
+    128 x 128, 64 x 128 or 16 x 256, chunks of 32 or 64 channels), with
+    the residual, in a bf16 or an fp32 output."""
+    bf16 = torch.bfloat16
+    x = _rn(gen, b, c, t, dtype=bf16, scale=2.0)
+    a = torch.exp(_rn(gen, c, scale=0.3))
+    inv_b = 1.0 / (torch.exp(_rn(gen, c, scale=0.3)) + 1e-9)
+    w = _rn(gen, o, c, k, dtype=bf16, scale=(c * k) ** -0.5)
+    bias = _rn(gen, o)
+    for res in (None, _rn(gen, b, o, t, dtype=ydtype)):
+        got = aa_snake_conv1d_cuda(x, a, inv_b, w, bias, dilation=dil,
+                                   residual=res, out_dtype=ydtype)
+        assert got.dtype == ydtype
+        _check(got, aa_snake_conv1d_plain(x, a, inv_b, w, bias, dilation=dil,
+                                          residual=res, out_dtype=ydtype),
+               bf16)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("up_x", [True, False])
+@pytest.mark.parametrize("t", [7, 15, 16, 17, 4097])
+def test_snake_kernel_run_edges(gen, dtype, up_x, t):
+    """Kernel D's 16-sample runs: T shorter than one run, one run, one run
+    + 1 and one past a block's 4096 samples, on a [B, C, T] tensor and on
+    one that starts an odd number of elements into its storage (no 16-byte
+    vector is aligned there)."""
+    b, c = 2, 3
+    flat = _rn(gen, 1 + b * c * t, dtype=dtype, scale=2.0)
+    a = torch.exp(_rn(gen, c, scale=0.3))
+    inv_b = 1.0 / (torch.exp(_rn(gen, c, scale=0.3)) + 1e-9)
+    for x in (flat[:-1].view(b, c, t), flat[1:].view(b, c, t)):
+        _check(fused_snake_cuda(x, a, inv_b, up_in_x_dtype=up_x),
+               fused_snake_plain(x, a, inv_b, up_in_x_dtype=up_x), dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
