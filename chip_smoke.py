@@ -360,6 +360,7 @@ def kernel_phase(torch, rec):
     # fp32 output with bf16 operands ----
     for b_, c, t, o, k, dil in ((1, 40, 300, 70, 7, 3),
                                 (2, 100, 257, 200, 11, 5),
+                                (1, 64, 400, 384, 11, 5),
                                 (1, 70, 129, 48, 3, 1), (1, 24, 65, 24, 11, 5),
                                 (1, 48, 129, 48, 11, 5),
                                 (1, 33, 1000, 24, 3, 1)):
@@ -382,10 +383,12 @@ def kernel_phase(torch, rec):
     # ---- D: the standalone AA snake, #9 mode (fp32 upsample taps) at the
     # NLC widths on a [B, T, C] tensor and on the [B, C, T] carry, #8 mode
     # (taps in x's type) at the NCL-hybrid widths; a ragged T, T < 8, T
-    # shorter than one 16-sample run (5, 7) and one run + 1 (17), and
-    # [B, C, T] views an odd number of elements into their storage ----
-    d_cases = [("#9", 768, 3752), ("#9", 384, 15008), ("#9", 192, 30016),
-               ("#9", 96, 60032), ("#8", 48, 120064), ("#8", 24, 240128),
+    # shorter than one 16-sample run (5, 7) and one run + 1 (17), rows off
+    # the 16-byte grid (3748, the 768-wide stage's T in a 10 s request),
+    # and [B, C, T] views an odd number of elements into their storage ----
+    d_cases = [("#9", 768, 3752), ("#9", 768, 3748), ("#9", 384, 15008),
+               ("#9", 192, 30016), ("#9", 96, 60032), ("#8", 48, 120064),
+               ("#8", 24, 240128),
                ("#9", 100, 1000), ("#8", 40, 1000), ("#9", 96, 5),
                ("#8", 24, 7), ("#9", 96, 17), ("#8", 24, 17)]
     for site, c, t in d_cases:

@@ -9,7 +9,7 @@
 // replicate pad of the Pallas kernels), the run's outputs y[j] = out(t0+j):
 //   SE[i] = s(e(t0 - 2 + i)),  SO[i] = s(o(t0 - 3 + i)),   i < N + 5
 //   e, o: 6-tap upsample phases, both reading xr[i .. i+5]
-//   s(v)  = v + inv_b * sin(a*v)^2                    (fp32, sinf)
+//   s(v)  = v + inv_b * sin2(a*v)                     (fp32)
 //   y[j]  = sum_m de[m] SE[j+m] + dn[m] SO[j+m]        (fp32)
 // Two orders of summation, one function up to fp32 rounding (the filter is
 // symmetric), each that of a plain version:
@@ -21,6 +21,13 @@
 // rounded to bf16 and so is each running sum but the last, as XLA computes
 // fused_snake_pallas in x's type; done two phase rows at a time in bf16x2
 // arithmetic, which rounds exactly so (mul.rn / add.rn, never fused).
+// sin2 is sin^2 by the Pallas kernels' pi-periodic reduction and odd
+// polynomial (ditto_tts_tpu/ops/fastmath.py; the port's ops/snake.py:sin2
+// keeps the same constants): branch-free, ~11 instructions. sinf measured
+// twice as costly here (PERF.md): with its slow-path range reduction
+// for large arguments (a local-memory table walk) inlined 2(N+5) times a
+// run, it was most of each run's instructions; and a*v is not
+// range-limited, so not __sinf.
 #pragma once
 
 #include "common.cuh"
@@ -33,9 +40,22 @@ struct AaTaps {
   float de[6], dn[6];   // decimation taps on s(e) and s(o)
 };
 
+// sin(v)^2: v = n*pi + f, |f| <= pi/2, pi split so that n*kPiHi is exact
+// for |n| < 2^15; sin(f) = f (c0 + c1 f^2 + ... + c4 f^8)
+__device__ __forceinline__ float sin2f(float v) {
+  constexpr float kInvPi = 0.3183098861837907f, kPiHi = 3.140625f,
+                  kPiLo = 0.0009676535897932384f;
+  const float n = rintf(v * kInvPi);
+  const float f = v - n * kPiHi - n * kPiLo;
+  const float f2 = f * f;
+  const float s = f * (0.999999977f + f2 * (-0.166666476f + f2 *
+                      (0.00833289979f + f2 * (-0.000198008956f +
+                                              f2 * 2.59048416e-06f))));
+  return s * s;
+}
+
 __device__ __forceinline__ float snake_act(float v, float a, float inv_b) {
-  const float s = sinf(a * v);   // a*v is not range-limited: not __sinf
-  return v + inv_b * (s * s);
+  return v + inv_b * sin2f(a * v);
 }
 
 // NV 16-byte vectors from global memory at p (16-byte aligned) into words,

@@ -9,7 +9,7 @@
 //     the activation near the ends differs from the polyphase oracle;
 //   * the activation runs in fp32 on x as stored (bf16 on the main path):
 //       e[t] = sum_r 2h[2r]   x[t+r-3],     o[t] = sum_r 2h[2r+1] x[t+r-2]
-//       s(v) = v + inv_b * sin(a*v)^2        (a = exp(alpha), inv_b =
+//       s(v) = v + inv_b * sin2(a*v)         (a = exp(alpha), inv_b =
 //                                             1/(exp(beta)+1e-9), per channel)
 //       z[t] = sum_r h[2r] s(o)[t+r-3] + h[2r+1] s(e)[t+r-2]
 //     with h the 12-tap kaiser-sinc low-pass, then zeroed outside [0, T)
@@ -25,8 +25,8 @@
 // block's residual add in the epilogue (models/vocoder.py:299-330, under
 // aa_impl="fused_ncl", at widths 48 and 24): the port carries [B, C, T], so
 // that is this kernel with the optional residual pointer.
-// The Pallas kernel's pi-periodic polynomial sin^2 (ops/fastmath.py) was a
-// Mosaic workaround; this kernel uses sinf (they differ by <= ~5e-7).
+// sin2 is the Pallas kernel's own pi-periodic polynomial sin^2
+// (ops/fastmath.py; aa_act.cuh sin2f), as in the plain version.
 //
 // What bounds it on an H100: at C=O=384, T=15k, B=4, K=11 a pair is
 // 2*B*O*C*K*T = 1.9e11 FLOP against ~0.1 GB of x and y, far above the
@@ -35,27 +35,28 @@
 // each channel chunk, once for each output-channel tile.
 //
 // bf16 (act_conv_kernel_tc): kernel B's tap-sum implicit GEMM on mma.sync
-// (tap_gemm.cuh) with the activation where B stages x. A block of 8 warps
-// owns a BM x BN tile (output channels x time) of one batch row in fp32
-// mma fragments and walks the input channels in chunks of KC. Each chunk's
-// activated signal is a time-major slab [BN + 2*ca][KC + 8] in shared
-// memory (row r is z at t0 - ca + r), and tap m reads it shifted by m*dil
-// rows, so one slab feeds all K taps. A thread computes a run of NR slab
-// rows of one channel in registers (aa_act.cuh): it reads x over the run
-// and its 5-sample halos with 16-byte loads (runs start where the window
-// is 16-byte aligned in time), rounds z to bf16 and stores it into its
-// channel's column (a warp's 32 lanes are 32 channels, so each row store is
-// one contiguous 64-byte segment). The slabs are double-buffered: the next
-// chunk's activation runs in rounds spread over the current chunk's taps,
-// right after each tap's mma instructions are issued, so the fp32 pipes
-// work while the tensor cores do (the register double buffer of B, with
-// the activation in place of B's plain copy; the block keeps one warp
-// role, since its fragments already hold most of the registers). The
-// weights are reordered per call into [K][O][Cp] (tap_weight_reorder) and
-// stream through B's 3-deep cp.async ring. Epilogue straight from the
-// fragments: the fp32 bias and residual join the sum before the one cast
-// to TY; ragged T and O are masked. The activation is recomputed once per
-// output-channel tile, ceil(O / BM) times.
+// (tap_gemm.cuh) over an activation computed once. A block owns BN time
+// steps of one batch row and every output channel. First it activates
+// every input channel over the rows [t0-ca, t0+BN+ca) into one resident,
+// time-major slab [BN + 2ca][C + 8] in shared memory (139.5 KB at C=384,
+// K=11, dil=5): a thread computes a run of 16 rows of one channel in
+// registers (aa_act.cuh) from x read with 16-byte loads (runs start where
+// the x window is 16-byte aligned in time), zeroes the rows outside [0, T),
+// rounds z to bf16 and stores it into its channel's column (a warp's 32
+// lanes are 32 channels, so each row store is one 64-byte segment). Then
+// it walks O tiles of BM x chunks of KC channels x taps; tap m reads the
+// slab shifted by m*dil rows, the weights (reordered per call into
+// [K][O][Cp] by tap_weight_reorder) stream through B's 3-deep cp.async
+// ring, whose first tiles fly during the activation. So the activation is
+// evaluated once per sample and halo row, not once per O tile and chunk.
+// Epilogue of each O tile straight from the fragments: the fp32 bias and
+// residual join the sum before the one cast to TY; ragged T and O are
+// masked. Tiles (measured, PERF.md): at O > 96, 12 warps of 64 x 32 (BM
+// 192, BN 128, one block an SM) and chunks of 64 channels, which halve the
+// ring's barriers (-25% against 32 at 384 and 192); below, 8 warps of 48 x
+// 32 or 32 x 32 (two blocks an SM) and chunks of 32, which pad C = 48 and
+// 24 less. A slab that does not fit in shared memory beside the ring (C >
+// 384 at K=11, dil=5, O > 96; the widest C on any path is 384) is refused.
 //
 // fp32 (act_conv_kernel) stays on the CUDA cores in exact fp32 (TF32 would
 // break the fp32 chain parity's 2e-5): kernel B's fp32 tiling (8*TO output
@@ -220,8 +221,8 @@ cudaError_t dispatch_f32(const void* x, const float* a, const float* inv_b,
 
 // ---- bf16 x and w: the tap GEMM on the tensor cores ----
 
-constexpr int kStages = 3;         // weight tiles in the cp.async ring
-constexpr int kTcThreads = 256;    // 8 warps
+constexpr int kStages = 3;   // weight tiles in the cp.async ring
+constexpr int kNR = 16;      // slab rows of one channel a thread activates
 
 template <typename TY>
 __device__ __forceinline__ float2 load_pair(const TY* p) {
@@ -238,11 +239,19 @@ __device__ __forceinline__ void store_pair(TY* p, float v0, float v1) {
   else *reinterpret_cast<uint32_t*>(p) = pack_bf16(v0, v1);
 }
 
-// BM x BN output tile (channels x time), warps of WM x WN, KC input
-// channels a chunk, activation runs of NR slab rows; slab and weight rows
-// have a pitch of KC + 8 elements
-template <typename TY, int BM, int BN, int WM, int WN, int KC, int NR>
-__global__ void __launch_bounds__(kTcThreads, 2)   // 2 blocks an SM
+// the slab's pitch: C rounded up to whole chunks of KC channels, + 8 (an
+// odd multiple of 16 bytes)
+template <int KC>
+__host__ __device__ __forceinline__ int slab_pitch(int C) {
+  return (C + KC - 1) / KC * KC + 8;
+}
+
+// Warps of MT x 4 mma tiles (16 MT output channels x 32 time steps), WARPS_M
+// x WARPS_N of them: BM = 16 MT WARPS_M output channels a tile, BN = 32
+// WARPS_N time steps a block; weight tiles of KC input channels
+template <typename TY, int MT, int WARPS_M, int WARPS_N, int KC>
+__global__ void __launch_bounds__(WARPS_M * WARPS_N * 32,
+                                  512 / (WARPS_M * WARPS_N * 32))
 act_conv_kernel_tc(const __nv_bfloat16* __restrict__ x,
                    const float* __restrict__ a,
                    const float* __restrict__ inv_b,
@@ -250,75 +259,83 @@ act_conv_kernel_tc(const __nv_bfloat16* __restrict__ x,
                    const float* __restrict__ bias, const TY* __restrict__ res,
                    TY* __restrict__ y, AaTaps taps, int C, int Cp, int Tlen,
                    int O, int K, int dil, int vec_x, int vec_y) {
-  constexpr int WARPS_N = BN / WN, MT = WM / 16, NT = WN / 8, P = KC + 8;
-  constexpr int NV = (NR + 11 + 7) / 8;   // 16-byte vectors of an x window
-  static_assert((BM / WM) * WARPS_N * 32 == kTcThreads, "8 warps a block");
-  static_assert(NR % 8 == 0, "runs start where x windows are aligned");
+  constexpr int NT = 4, NTH = WARPS_M * WARPS_N * 32;
+  constexpr int WM = 16 * MT, WN = 8 * NT, BM = WARPS_M * WM, BN = WARPS_N * WN;
+  constexpr int PW = KC + 8;
+  constexpr int NV = (kNR + 11 + 7) / 8;   // 16-byte vectors of an x window
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ws = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kStages][BM][P]
+  __nv_bfloat16* Ws = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kStages][BM][PW]
+  __nv_bfloat16* Zs = Ws + kStages * BM * PW;                       // [R][P]
   const int ca = (K - 1) * dil / 2;   // 'SAME' padding of the conv
   const int R = BN + 2 * ca;          // slab rows: z at [t0-ca, t0+BN+ca)
-  __nv_bfloat16* Xs = Ws + kStages * BM * P;                        // [2][R][P]
+  const int P = slab_pitch<KC>(C), Cs = P - 8;
 
-  const int t0 = blockIdx.x * BN, o0 = blockIdx.y * BM, b = blockIdx.z;
+  const int t0 = blockIdx.x * BN, b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const __nv_bfloat16* xb = x + static_cast<long long>(b) * C * Tlen;
-  const int nchunks = (C + KC - 1) / KC, J = nchunks * K;
+  const int per_tile = Cs / KC * K;   // (chunk, tap) steps of one O tile
+  const int J = (O + BM - 1) / BM * per_tile;
 
-  auto load_w = [&](int jj) {   // tap tile jj = (chunk, tap) into its slot
-    const int i = jj / K, m = jj - i * K;
-    __nv_bfloat16* dst = Ws + (jj % kStages) * BM * P;
-    for (int u = tid; u < BM * (KC / 8); u += kTcThreads) {
-      const int r = u / (KC / 8), seg = u % (KC / 8);
-      const int o = o0 + r, c = i * KC + seg * 8;
+  auto load_w = [&](int jj) {   // step jj = (O tile, chunk, tap) into its slot
+    const int ot = jj / per_tile, r = jj - ot * per_tile;
+    const int i = r / K, m = r - i * K;
+    __nv_bfloat16* dst = Ws + (jj % kStages) * BM * PW;
+    for (int u = tid; u < BM * (KC / 8); u += NTH) {
+      const int row = u / (KC / 8), seg = u % (KC / 8);
+      const int o = ot * BM + row, c = i * KC + seg * 8;
       const bool ok = o < O && c < Cp;
-      cp_async16(dst + r * P + seg * 8,
+      cp_async16(dst + row * PW + seg * 8,
                  ok ? wr + (static_cast<long long>(m) * O + o) * Cp + c : wr,
                  ok);
     }
   };
-
-  // The chunk's activation: KC channels x runs of NR slab rows. Runs start
-  // at s0 + NR*k with s0 in (-8, 0] and s0 = ca + 5 (mod 8), so the x
-  // window of every run, [t0-ca+r0-5, +NR+11), starts 8-aligned in time.
-  // Item q is channel q % KC of run q / KC; rounds of 256 items.
-  int s0 = (ca + 5) % 8;
-  if (s0 > 0) s0 -= 8;
-  const int items = KC * ((R - s0 + NR - 1) / NR);
-  const int rounds = (items + kTcThreads - 1) / kTcThreads;
-  auto act_round = [&](int i, int buf, int k) {
-    const int q = k * kTcThreads + tid;
-    if (q >= items) return;
-    const int cl = q % KC, r0 = s0 + q / KC * NR, cc = i * KC + cl;
-    float z[NR];
-    if (cc < C) {
-      const int ts = t0 - ca + r0 - 5;
-      const __nv_bfloat16* src = xb + static_cast<long long>(cc) * Tlen;
-      float xw[NR + 11];
-      if (vec_x && ts >= 0 && ts + 8 * NV <= Tlen) {
-        uint32_t v[4 * NV];
-        load_vec<NV>(v, src + ts);
 #pragma unroll
-        for (int j = 0; j < NR + 11; ++j) xw[j] = word_elem<__nv_bfloat16>(v, j);
+  for (int st = 0; st < kStages - 1; ++st) {   // in flight during the activation
+    if (st < J) load_w(st);
+    cp_async_commit();
+  }
+
+  // The activation of every input channel over the slab's rows, once.
+  // Item q is channel q % Cs (a warp's lanes: 32 consecutive channels, so
+  // each row store is one 64-byte segment) of run q / Cs: slab rows
+  // [r0, r0 + kNR), r0 = s0 + kNR (q / Cs) with s0 in (-8, 0] and s0 = ca + 5
+  // (mod 8), so every run's x window [t0-ca+r0-5, +kNR+11) starts 8-aligned
+  // in time. Channels past C are zeros, which zero weights multiply.
+  {
+    int s0 = (ca + 5) % 8;
+    if (s0 > 0) s0 -= 8;
+    const int items = Cs * ((R - s0 + kNR - 1) / kNR);
+    const __nv_bfloat16* xb = x + static_cast<long long>(b) * C * Tlen;
+    for (int q = tid; q < items; q += NTH) {
+      const int c = q % Cs, r0 = s0 + q / Cs * kNR;
+      float z[kNR];
+      if (c < C) {
+        const int ts = t0 - ca + r0 - 5;
+        const __nv_bfloat16* src = xb + static_cast<long long>(c) * Tlen;
+        float xw[kNR + 11];
+        if (vec_x && ts >= 0 && ts + 8 * NV <= Tlen) {
+          uint32_t v[4 * NV];
+          load_vec<NV>(v, src + ts);
+#pragma unroll
+          for (int j = 0; j < kNR + 11; ++j) xw[j] = word_elem<__nv_bfloat16>(v, j);
+        } else {
+#pragma unroll
+          for (int j = 0; j < kNR + 11; ++j)
+            xw[j] = to_f<__nv_bfloat16>(src[min(max(ts + j, 0), Tlen - 1)]);
+        }
+        aa_act<false, false, kNR>(xw, a[c], inv_b[c], taps, z);
       } else {
 #pragma unroll
-        for (int j = 0; j < NR + 11; ++j)
-          xw[j] = to_f<__nv_bfloat16>(src[min(max(ts + j, 0), Tlen - 1)]);
+        for (int j = 0; j < kNR; ++j) z[j] = 0.f;
       }
-      aa_act<false, false, NR>(xw, a[cc], inv_b[cc], taps, z);
-    } else {   // past C: zeros, which the zero weights of [C, KC) multiply
 #pragma unroll
-      for (int j = 0; j < NR; ++j) z[j] = 0.f;
+      for (int j = 0; j < kNR; ++j) {
+        const int r = r0 + j, t = t0 - ca + r;
+        if (r >= 0 && r < R)
+          Zs[r * P + c] = __float2bfloat16(t >= 0 && t < Tlen ? z[j] : 0.f);
+      }
     }
-    __nv_bfloat16* dst = Xs + buf * R * P + cl;
-#pragma unroll
-    for (int j = 0; j < NR; ++j) {
-      const int r = r0 + j, t = t0 - ca + r;
-      if (r >= 0 && r < R)
-        dst[r * P] = __float2bfloat16(t >= 0 && t < Tlen ? z[j] : 0.f);
-    }
-  };
+  }
 
   float acc[MT][NT][4];
 #pragma unroll
@@ -328,83 +345,84 @@ act_conv_kernel_tc(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
 
-  for (int k = 0; k < rounds; ++k) act_round(0, 0, k);
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < J) load_w(st);
-    cp_async_commit();
-  }
+  const int g = lane >> 2, qd = lane & 3;
   for (int jj = 0; jj < J; ++jj) {
-    const int i = jj / K, m = jj - i * K;
+    const int ot = jj / per_tile, r = jj - ot * per_tile;
+    const int i = r / K, m = r - i * K;
     cp_async_wait<kStages - 2>();
-    __syncthreads();   // tap tile jj and slab i are in shared memory, and
-                       // every warp is done with the slot refilled below
-                       // and with slab i - 1, which the rounds overwrite
+    __syncthreads();   // step jj's weights (and, at jj = 0, the slab) are in
+                       // shared memory; every warp is done with the slot
+                       // refilled below
     if (jj + kStages - 1 < J) load_w(jj + kStages - 1);
     cp_async_commit();
-    tap_mma<MT, NT, KC, P, P>(
-        acc, Ws + ((jj % kStages) * BM + wm * WM) * P,
-        Xs + ((i & 1) * R + wn * WN + m * dil) * P, lane);
-    if (i + 1 < nchunks)   // the rounds of tap m: [ceil(m R/K), ceil((m+1) R/K))
-      for (int k = (m * rounds + K - 1) / K; k < ((m + 1) * rounds + K - 1) / K;
-           ++k)
-        act_round(i + 1, (i + 1) & 1, k);
-  }
-  cp_async_wait<0>();
+    tap_mma<MT, NT, KC, PW>(acc, Ws + ((jj % kStages) * BM + wm * WM) * PW,
+                            Zs + (wn * WN + m * dil) * P + i * KC, P, lane);
+    if (r != per_tile - 1) continue;
 
-  // epilogue from the fragments: + bias (+ residual) in fp32, one cast
-  const int g = lane >> 2, qd = lane & 3;
+    // the O tile's epilogue from the fragments: + bias (+ residual) in
+    // fp32, one cast
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int o = o0 + wm * WM + mt * 16 + g + half * 8;
-      if (o >= O) continue;
-      const float bv = bias != nullptr ? bias[o] : 0.f;
-      const long long row = (static_cast<long long>(b) * O + o) * Tlen;
+      for (int half = 0; half < 2; ++half) {
+        const int o = ot * BM + wm * WM + mt * 16 + g + half * 8;
+        if (o >= O) continue;
+        const float bv = bias != nullptr ? bias[o] : 0.f;
+        const long long row = (static_cast<long long>(b) * O + o) * Tlen;
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int t = t0 + wn * WN + nt * 8 + 2 * qd;
-        float v0 = acc[mt][nt][2 * half] + bv;
-        float v1 = acc[mt][nt][2 * half + 1] + bv;
-        if (vec_y && t + 1 < Tlen) {
-          if (res != nullptr) {
-            const float2 r = load_pair<TY>(res + row + t);
-            v0 += r.x;
-            v1 += r.y;
-          }
-          store_pair<TY>(y + row + t, v0, v1);
-        } else {
-          if (t < Tlen) {
-            if (res != nullptr) v0 += to_f<TY>(res[row + t]);
-            y[row + t] = from_f<TY>(v0);
-          }
-          if (t + 1 < Tlen) {
-            if (res != nullptr) v1 += to_f<TY>(res[row + t + 1]);
-            y[row + t + 1] = from_f<TY>(v1);
+        for (int nt = 0; nt < NT; ++nt) {
+          const int t = t0 + wn * WN + nt * 8 + 2 * qd;
+          float v0 = acc[mt][nt][2 * half] + bv;
+          float v1 = acc[mt][nt][2 * half + 1] + bv;
+          if (vec_y && t + 1 < Tlen) {
+            if (res != nullptr) {
+              const float2 rv = load_pair<TY>(res + row + t);
+              v0 += rv.x;
+              v1 += rv.y;
+            }
+            store_pair<TY>(y + row + t, v0, v1);
+          } else {
+            if (t < Tlen) {
+              if (res != nullptr) v0 += to_f<TY>(res[row + t]);
+              y[row + t] = from_f<TY>(v0);
+            }
+            if (t + 1 < Tlen) {
+              if (res != nullptr) v1 += to_f<TY>(res[row + t + 1]);
+              y[row + t + 1] = from_f<TY>(v1);
+            }
           }
         }
       }
-    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  }
+  cp_async_wait<0>();
 }
 
-template <typename TY, int BM, int BN, int WM, int WN, int KC, int NR>
+template <typename TY, int MT, int WARPS_M, int WARPS_N, int KC>
 cudaError_t launch_tc(const void* x, const float* a, const float* inv_b,
                       const void* wr, const float* bias, const void* res,
                       void* y, const AaTaps& taps, int B, int C, int Cp,
                       int Tlen, int O, int K, int dil, cudaStream_t stream) {
-  const int R = BN + (K - 1) * dil / 2 * 2;
-  const size_t smem = (static_cast<size_t>(kStages) * BM + 2 * static_cast<size_t>(R)) *
-                      (KC + 8) * sizeof(__nv_bfloat16);
-  auto kernel = act_conv_kernel_tc<TY, BM, BN, WM, WN, KC, NR>;
+  constexpr int BM = 16 * MT * WARPS_M, BN = 32 * WARPS_N;
+  const size_t rows = BN + static_cast<size_t>((K - 1) * dil / 2) * 2;
+  const size_t smem = (static_cast<size_t>(kStages) * BM * (KC + 8) +
+                       rows * slab_pitch<KC>(C)) * sizeof(__nv_bfloat16);
+  if (smem > 227 * 1024)   // the slab of every channel does not fit
+    return cudaErrorInvalidValue;
+  auto kernel = act_conv_kernel_tc<TY, MT, WARPS_M, WARPS_N, KC>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Tlen + BN - 1) / BN, (O + BM - 1) / BM, B);
+  const dim3 grid((Tlen + BN - 1) / BN, B);
   const int vec_x = Tlen % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const uintptr_t pair = 2 * sizeof(TY);
   const int vec_y = Tlen % 2 == 0 && reinterpret_cast<uintptr_t>(y) % pair == 0 &&
                     reinterpret_cast<uintptr_t>(res) % pair == 0;
-  kernel<<<grid, kTcThreads, smem, stream>>>(
+  kernel<<<grid, WARPS_M * WARPS_N * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), a, inv_b,
       static_cast<const __nv_bfloat16*>(wr), bias,
       static_cast<const TY*>(res), static_cast<TY*>(y), taps, C, Cp, Tlen, O,
@@ -412,21 +430,22 @@ cudaError_t launch_tc(const void* x, const float* a, const float* inv_b,
   return cudaGetLastError();
 }
 
-// the tile configuration by O: kernel B's three tiles, with runs of 8 rows
-// where the 128-row tile's fragments leave fewer registers
+// the tile by O (MT, WARPS_M, WARPS_N, KC): 12 warps of 64 x 32, BM 192 x
+// BN 128, for the wide stages; 8 warps (two blocks an SM) of 48 x 32 or
+// 32 x 32 below
 template <typename TY>
 cudaError_t dispatch_tc(const void* x, const float* a, const float* inv_b,
                         const void* wr, const float* bias, const void* res,
                         void* y, const AaTaps& taps, int B, int C, int Cp,
                         int Tlen, int O, int K, int dil, cudaStream_t s) {
-  if (O > 32 && (O <= 64 || O % 128 == 64))   // 48, 192
-    return launch_tc<TY, 64, 128, 32, 32, 64, 16>(
-        x, a, inv_b, wr, bias, res, y, taps, B, C, Cp, Tlen, O, K, dil, s);
-  if (O > 32)   // 96, 384
-    return launch_tc<TY, 128, 128, 64, 32, 32, 8>(
-        x, a, inv_b, wr, bias, res, y, taps, B, C, Cp, Tlen, O, K, dil, s);
-  return launch_tc<TY, 16, 256, 16, 32, 32, 16>(   // 1..32
-      x, a, inv_b, wr, bias, res, y, taps, B, C, Cp, Tlen, O, K, dil, s);
+#define DITTO_TC(MT, WM, WN, KC)                                             \
+  launch_tc<TY, MT, WM, WN, KC>(x, a, inv_b, wr, bias, res, y, taps, B, C, \
+                                Cp, Tlen, O, K, dil, s)
+  if (O > 96) return DITTO_TC(4, 3, 4, 64);   // 192, 384
+  if (O > 48) return DITTO_TC(3, 2, 4, 32);   // 96
+  if (O > 32) return DITTO_TC(3, 1, 8, 32);   // 48
+  return DITTO_TC(2, 1, 8, 32);               // 24
+#undef DITTO_TC
 }
 
 }  // namespace

@@ -292,9 +292,9 @@ conv1d_kernel_tc(const __nv_bfloat16* __restrict__ x,
     cp_async_commit();
     const bool next_x = i + 1 < nchunks;
     if (next_x && m == 0) load_x(i + 1);
-    tap_mma<MT, NT, KC, P, P>(
+    tap_mma<MT, NT, KC, P>(
         acc, Ws + ((jj % kStages) * BM + wm * WM) * P,
-        Xs + ((i & 1) * R + wn * WN + m * dil) * P, lane);
+        Xs + ((i & 1) * R + wn * WN + m * dil) * P, P, lane);
     if (next_x && m == K - 1) store_x(i + 1, (i + 1) & 1);
   }
   cp_async_wait<0>();

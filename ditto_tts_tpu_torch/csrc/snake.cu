@@ -15,14 +15,14 @@
 // a = exp(alpha), inv_b = 1/(exp(beta)+1e-9), h the 12-tap kaiser-sinc
 // low-pass, x replicate-padded (the index clamped to [0, T)):
 //   e[u] = sum_m 2h[2m+1] x[u+2-m],   o[u] = sum_m 2h[2m] x[u+3-m]
-//   s(v) = v + inv_b * sin(a*v)^2                       (fp32, sinf)
+//   s(v) = v + inv_b * sin(a*v)^2     (fp32; sin^2 by a polynomial)
 //   y[t] = sum_m h[2m+1] s(e)[t+m-2] + h[2m] s(o)[t+m-3]   (fp32)
 // stored in x's type. The two Pallas kernels differ in the upsample taps:
 // fused_snake_nlc casts x to fp32 first (UP_X = false); fused_snake_pallas
 // multiplies in x's type (UP_X = true): taps, products and each running sum
-// but the last are rounded to x's type. The Pallas kernels' pi-periodic
-// polynomial sin^2 (ops/fastmath.py) was a Mosaic workaround; this kernel
-// uses sinf (they differ by <= ~5e-7).
+// but the last are rounded to x's type. sin^2 is the Pallas kernels' own
+// pi-periodic polynomial (ops/fastmath.py; aa_act.cuh sin2f), as in the
+// plain version.
 //
 // What bounds it on an H100: ~56 fp32 operations per sample against the
 // 2 * sizeof(T) bytes of one read and one write: at 67 TFLOP/s fp32 and
@@ -38,13 +38,17 @@
 //   time-minor ([B, C, T], every launch on the serving paths): neighbouring
 //     lanes own neighbouring runs of one channel; a thread reads x over
 //     [t0-8, t0+24) with 16-byte loads (the halo overlaps its neighbours',
-//     from L1) and writes its run with 16-byte stores;
+//     from L1) and writes its run with 16-byte stores. A row's runs start
+//     where its 16-byte vectors do (t0 = 16k - shift, shift < 8 the row's
+//     start modulo a vector), so a row of any length or storage offset
+//     (T = 3748 on the 768-wide stage) still takes vector loads;
 //   channel-minor ([B, T, C] views): neighbouring lanes own one run of
 //     neighbouring channels, so each scalar load and store of a warp is
 //     contiguous across channels.
-// A run at either end of T, shorter than one run, or a tensor whose rows
-// are not 16-byte aligned (a storage offset, an odd stride) takes scalar
-// loads and stores with the clamped index, in the same kernel.
+// The runs at either end of T, a T shorter than one vector window, a time
+// stride other than 1, and stores to a y whose row is aligned otherwise
+// than x's take scalar loads or stores with the clamped index, in the same
+// kernel.
 
 #include "aa_act.cuh"
 
@@ -59,21 +63,27 @@ __global__ void __launch_bounds__(kThreads)
 snake_kernel(const T* __restrict__ x, const float* __restrict__ a,
              const float* __restrict__ inv_b, T* __restrict__ y,
              AaTaps taps, int C, int Tlen, long long xsb, long long xsc,
-             long long xst, long long ysb, long long ysc, long long yst,
-             int vec_x, int vec_y) {
+             long long xst, long long ysb, long long ysc, long long yst) {
   constexpr int E = 16 / sizeof(T);           // elements per 16-byte vector
   constexpr int NW = kRun + 16;               // the vector window [t0-8, t0+24)
   const int tid = threadIdx.x;
   const int c = TIME_MINOR ? blockIdx.y : blockIdx.y * 32 + (tid & 31);
-  const int t0 = TIME_MINOR ? (blockIdx.x * kThreads + tid) * kRun
-                            : (blockIdx.x * (kThreads / 32) + (tid >> 5)) * kRun;
-  if (c >= C || t0 >= Tlen) return;
+  if (c >= C) return;
   const long long b = blockIdx.z;
   const T* xr = x + b * xsb + c * xsc;
   T* yr = y + b * ysb + c * ysc;
+  // time-minor: the runs of a row start where its 16-byte vectors do, so
+  // the first run begins up to E-1 samples before t = 0
+  const int shift = TIME_MINOR && xst == 1
+                        ? static_cast<int>(reinterpret_cast<uintptr_t>(xr) / sizeof(T) % E)
+                        : 0;
+  const int t0 = (TIME_MINOR ? blockIdx.x * kThreads + tid
+                             : blockIdx.x * (kThreads / 32) + (tid >> 5)) * kRun -
+                 shift;
+  if (t0 >= Tlen) return;
 
   float w[kRun + 11];   // x[t0 - 5 + i]
-  if (TIME_MINOR && vec_x && t0 >= 8 && t0 + kRun + 8 <= Tlen) {
+  if (TIME_MINOR && xst == 1 && t0 >= 8 && t0 + kRun + 8 <= Tlen) {
     uint32_t v[NW * sizeof(T) / 4];
     load_vec<NW / E>(v, xr + t0 - 8);
 #pragma unroll
@@ -88,7 +98,8 @@ snake_kernel(const T* __restrict__ x, const float* __restrict__ a,
   float out[kRun];
   aa_act<UP_X, true, kRun>(w, a[c], inv_b[c], taps, out);
 
-  if (TIME_MINOR && vec_y && t0 + kRun <= Tlen) {
+  if (TIME_MINOR && yst == 1 && t0 >= 0 && t0 + kRun <= Tlen &&
+      reinterpret_cast<uintptr_t>(yr + t0) % 16 == 0) {
     uint32_t v[kRun * sizeof(T) / 4];
 #pragma unroll
     for (int k = 0; k < kRun * static_cast<int>(sizeof(T)) / 4; ++k) {
@@ -99,16 +110,8 @@ snake_kernel(const T* __restrict__ x, const float* __restrict__ a,
   } else {
 #pragma unroll
     for (int j = 0; j < kRun; ++j)
-      if (t0 + j < Tlen) yr[(t0 + j) * yst] = from_f<T>(out[j]);
+      if (t0 + j >= 0 && t0 + j < Tlen) yr[(t0 + j) * yst] = from_f<T>(out[j]);
   }
-}
-
-// x's rows are 16-byte vectors: unit time stride, every row start aligned
-template <typename T>
-int rows_aligned(const void* p, const long long* s) {
-  constexpr long long E = 16 / sizeof(T);
-  return s[2] == 1 && s[1] % E == 0 && s[0] % E == 0 &&
-         reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 template <typename T, bool UP_X>
@@ -118,18 +121,19 @@ cudaError_t launch(const void* x, const float* a, const float* inv_b, void* y,
                    cudaStream_t s) {
   const T* xp = static_cast<const T*>(x);
   T* yp = static_cast<T*>(y);
-  const int vx = rows_aligned<T>(x, xs), vy = rows_aligned<T>(y, ys);
   if (time_minor) {
-    const dim3 grid((Tlen + kThreads * kRun - 1) / (kThreads * kRun), C, B);
+    // runs of a row shifted back by up to E-1 samples: one more may be needed
+    const int runs = (Tlen + 16 / static_cast<int>(sizeof(T)) - 1 + kRun - 1) / kRun;
+    const dim3 grid((runs + kThreads - 1) / kThreads, C, B);
     snake_kernel<T, UP_X, true><<<grid, kThreads, 0, s>>>(
         xp, a, inv_b, yp, taps, C, Tlen, xs[0], xs[1], xs[2], ys[0], ys[1],
-        ys[2], vx, vy);
+        ys[2]);
   } else {
     constexpr int TB = kThreads / 32 * kRun;
     const dim3 grid((Tlen + TB - 1) / TB, (C + 31) / 32, B);
     snake_kernel<T, UP_X, false><<<grid, kThreads, 0, s>>>(
         xp, a, inv_b, yp, taps, C, Tlen, xs[0], xs[1], xs[2], ys[0], ys[1],
-        ys[2], vx, vy);
+        ys[2]);
   }
   return cudaGetLastError();
 }

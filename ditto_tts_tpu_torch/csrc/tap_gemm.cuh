@@ -23,12 +23,13 @@ namespace ditto {
 
 // acc[mt][nt] (a warp's MT x NT tiles of 16 x 8 fp32 sums) += the chunk's
 // contribution of one tap. w: the warp's first weight row of the tap tile;
-// x: the warp's first slab row, already shifted by m*dil; pitches PW, PX in
-// elements; KC channels in the chunk.
-template <int MT, int NT, int KC, int PW, int PX>
+// x: the warp's first slab row, already shifted by m*dil, at the chunk's
+// first channel; pitches PW and px in elements; KC channels in the chunk.
+template <int MT, int NT, int KC, int PW>
 __device__ __forceinline__ void tap_mma(float (&acc)[MT][NT][4],
                                         const __nv_bfloat16* w,
-                                        const __nv_bfloat16* x, int lane) {
+                                        const __nv_bfloat16* x, int px,
+                                        int lane) {
   static_assert(NT % 2 == 0 && KC % 16 == 0, "n tiles in pairs, k in 16s");
 #pragma unroll
   for (int ks = 0; ks < KC / 16; ++ks) {
@@ -40,7 +41,7 @@ __device__ __forceinline__ void tap_mma(float (&acc)[MT][NT][4],
 #pragma unroll
     for (int np = 0; np < NT / 2; ++np) {
       uint32_t bf[4];   // b0, b1 of time tiles 2np and 2np + 1
-      ldsm_x4(bf, x + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * PX +
+      ldsm_x4(bf, x + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * px +
                       ks * 16 + ((lane >> 3) & 1) * 8);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {

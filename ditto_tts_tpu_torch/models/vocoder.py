@@ -26,9 +26,11 @@ stages of the nlc layout are "NLC" stages. W is the stage's width.
   act_post after an NLC stage: a standalone NLC act (fused_conv: polyphase)
 
 "C pairs" run each act->conv pair as one call of kernel C
-(``ops.act_conv``); "raises" is the JAX package's NotImplementedError. The
-JAX fused_conv path's fast polynomial sin^2 (``ops/fastmath.py``, <= 5e-7
-abs) is exact ``torch.sin`` here, as everywhere in the port.
+(``ops.act_conv``); "raises" is the JAX package's NotImplementedError. As
+in the JAX package, the fused kernels (C and D, as their Pallas
+counterparts) take the pi-periodic polynomial sin^2 (``ops.snake.sin2``,
+<= 5e-7 abs from sin^2), the polyphase, composed and banded-GEMM forms
+``torch.sin``.
 """
 
 from __future__ import annotations

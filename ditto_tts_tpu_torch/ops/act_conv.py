@@ -4,8 +4,9 @@ the plain version and kernel C's wrapper.
 ``aa_snake_conv1d`` computes what the Pallas kernel
 ``ditto_tts_tpu/ops/act_conv_pallas.py:aa_snake_conv1d`` computes, with its
 edge semantics: x (cast to the compute type) is replicate-padded, the
-activation runs in fp32 (two 6-tap upsample phases, snake, 12-tap
-decimation), rows outside [0, T) are zeroed, the activation is rounded to
+activation runs in fp32 (two 6-tap upsample phases, snake with the Pallas
+kernel's polynomial sin^2 ``ops.snake.sin2``, 12-tap decimation), rows
+outside [0, T) are zeroed, the activation is rounded to
 the compute type, and the dilated taps sum in fp32 with the bias before
 the single cast to x's type. ``aa_snake_conv1d_ncl`` is the counterpart of
 the time-minor twin ``aa_snake_conv1d_ncl``: the same function plus an
@@ -31,7 +32,7 @@ import torch.nn.functional as F
 
 from .. import kernels
 from .conv import conv1d, conv1d_plain
-from .snake import aa_filter, polyphase_anti_aliased_activation, \
+from .snake import aa_filter, polyphase_anti_aliased_activation, sin2, \
     snake_beta, snake_coeffs
 
 _AH = 8   # the Pallas kernel's activation halo rows per side
@@ -70,8 +71,7 @@ def aa_snake_conv1d_plain(x, a, inv_b, weight, bias=None, *,
     av, ib = a[:, None], inv_b[:, None]
 
     def act(v):
-        s = torch.sin(av * v)
-        return v + ib * (s * s)
+        return v + ib * sin2(av * v)
 
     se = act(fir(eu, 0, xp, nph))
     so = act(fir(ou, 1, xp, nph))

@@ -9,8 +9,11 @@ kaiser-sinc up, activation, 2x anti-aliased down) without the 2x-rate
 signal: two 6-tap upsample phases, the activation on each, two 6-tap
 decimation phases, with BigVGAN's replicate edges. It runs in fp32 and
 returns x's type; the vocoder uses it for the activations outside the
-fused act->conv widths and for act_post. The TPU's fast polynomial sin^2
-was a Mosaic workaround; the port uses ``torch.sin``.
+fused act->conv widths and for act_post. These forms take ``torch.sin``,
+as the JAX ones take ``jnp.sin``. The fused kernels C and D, like the
+Pallas kernels they replace, take ``sin2``: sin^2 by a pi-periodic range
+reduction and an odd polynomial (the JAX ``ops/fastmath.py``), branch-free
+and a fraction of ``sinf``'s instructions on the card.
 
 The vocoder's other ``aa_impl`` settings take the other two forms:
 ``anti_aliased_activation`` (composed: 2x-rate upsample, activation, 2x
@@ -32,10 +35,31 @@ from .resample import downsample1d, kaiser_sinc_filter1d, upsample1d
 
 _EPS = 1e-9
 
+# sin2's constants, those of the JAX ops/fastmath.py (and csrc/aa_act.cuh)
+_INV_PI = 0.3183098861837907
+_PI_HI = 3.140625                  # n * _PI_HI is exact for |n| < 2^15
+_PI_LO = 0.0009676535897932384
+# sin(f) = f (c0 + c1 f^2 + c2 f^4 + c3 f^6 + c4 f^8) on [-pi/2, pi/2]
+_SIN_C = (0.999999977, -0.166666476, 0.00833289979, -0.000198008956,
+          2.59048416e-06)
+
 
 def aa_filter() -> np.ndarray:
     """The 12-tap low-pass of BigVGAN's 2x up/down resampling (fp32)."""
     return kaiser_sinc_filter1d(0.25, 0.3, 12)
+
+
+def sin2(x):
+    """sin(x)^2 of an fp32 tensor via pi-periodic range reduction: x = n pi
+    + f with |f| <= pi/2, then an odd degree-9 minimax polynomial in f
+    (|sin err| < 3.4e-9 in f64; in fp32 within ~5e-7 of sin(x)^2 for |x|
+    <~ 1e3). The arithmetic of the Pallas kernels and of kernels C and D."""
+    n = torch.round(x * _INV_PI)
+    f = x - n * _PI_HI - n * _PI_LO
+    f2 = f * f
+    c0, c1, c2, c3, c4 = _SIN_C
+    s = f * (c0 + f2 * (c1 + f2 * (c2 + f2 * (c3 + f2 * c4))))
+    return s * s
 
 
 def snake_coeffs(alpha, beta=None, *, logscale: bool = True):

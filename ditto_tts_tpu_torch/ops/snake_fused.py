@@ -14,9 +14,9 @@ other in the upsample taps: ``fused_snake_nlc`` casts x to fp32 first;
 ``fused_snake_pallas`` multiplies in x's type, so in bf16 the taps, the
 products and each running sum but the last are rounded to bf16 (the last
 sum feeds the fp32 snake and XLA keeps it in fp32). The snake and the
-decimation run in fp32; the result has x's type. The Pallas kernels'
-polynomial sin^2 (``ops/fastmath.py``, <= 5e-7 abs) is exact ``torch.sin``
-here.
+decimation run in fp32; the result has x's type. The snake's sin^2 is the
+Pallas kernels' pi-periodic polynomial (``ops.snake.sin2``), as kernel D
+computes it.
 
 A CPU tensor takes ``fused_snake_plain``; a CUDA tensor launches kernel D
 (``csrc/snake.cu``) or raises. Both layouts go through one kernel on a
@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
-from .snake import aa_filter, snake_coeffs
+from .snake import aa_filter, sin2, snake_coeffs
 
 _P = 8   # replicate-pad samples per side (the Pallas kernels' halo)
 
@@ -77,8 +77,7 @@ def fused_snake_plain(x, a, inv_b, *, up_in_x_dtype: bool):
     av, ib = a[:, None], inv_b[:, None]
 
     def snake(v):
-        s = torch.sin(av * v)
-        return v + ib * (s * s)
+        return v + ib * sin2(av * v)
 
     se = snake(phase(he, _P - 2))
     so = snake(phase(ho, _P - 1))

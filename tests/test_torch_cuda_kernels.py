@@ -12,9 +12,10 @@ cannot load:
 Tolerance: max |kernel - plain| <= tol * max |plain|, tol 2e-5 in fp32
 (another summation order) and 1e-2 in bf16 (a few bf16 ulps). The bf16
 kernels A, B and C run on the tensor cores in tiles of 64 keys / 16 query
-rows a warp and 32 input channels x 16..128 output channels x 128..256
-time steps, and kernel D in runs of 16 samples a thread, so the edge
-cases sit on either side of those tiles and runs.
+rows a warp and 32 input channels x 16..192 output channels x 128..256
+time steps (C: a slab of every input channel, activated in runs of 16
+rows), and kernel D in runs of 16 samples a thread, so the edge cases sit
+on either side of those tiles and runs.
 """
 
 import pytest
@@ -193,16 +194,18 @@ def test_act_conv_kernel_residual(gen, dtype, ydtype, b, c, t, o, k, dil):
 
 @pytest.mark.parametrize("ydtype", DTYPES)
 @pytest.mark.parametrize("b,c,t,o,k,dil", [
-    (1, 40, 300, 70, 7, 3),      # T, O and C off the 128 x 128 tile, chunk
-    (2, 100, 257, 200, 11, 5),   # O past one 128-row tile
-    (1, 70, 129, 48, 3, 1),      # the 64-row tile, C past one 64 chunk
+    (1, 40, 300, 70, 7, 3),      # T off BN 128, O off the 96-row tile
+    (2, 100, 257, 200, 11, 5),   # O past one 192-row tile, C off 64
+    (1, 64, 400, 384, 11, 5),    # two whole 192-row tiles
+    (1, 70, 129, 48, 3, 1),      # the 48-row tile, BN 256, C off 32
     (1, 24, 65, 24, 11, 5),      # T just above aa_snake_conv1d's gate
     (1, 48, 129, 48, 11, 5),     # T just above aa_snake_conv1d_ncl's gate
-    (1, 33, 1000, 24, 3, 1)])    # the 16 x 256 tile, C past one chunk
+    (1, 33, 1000, 24, 3, 1)])    # the 32-row tile, C past one chunk
 def test_act_conv_kernel_tc_tile_edges(gen, ydtype, b, c, t, o, k, dil):
     """Kernel C's tensor-core path at the edges of its tiles (BM x BN of
-    128 x 128, 64 x 128 or 16 x 256, chunks of 32 or 64 channels), with
-    the residual, in a bf16 or an fp32 output."""
+    192 x 128 with chunks of 64 channels, 96 x 128, 48 x 256 or 32 x 256
+    with chunks of 32, slab runs of 16 rows), with and without the
+    residual, in a bf16 or an fp32 output."""
     bf16 = torch.bfloat16
     x = _rn(gen, b, c, t, dtype=bf16, scale=2.0)
     a = torch.exp(_rn(gen, c, scale=0.3))
@@ -220,12 +223,13 @@ def test_act_conv_kernel_tc_tile_edges(gen, ydtype, b, c, t, o, k, dil):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("up_x", [True, False])
-@pytest.mark.parametrize("t", [7, 15, 16, 17, 4097])
+@pytest.mark.parametrize("t", [7, 15, 16, 17, 3748, 4097])
 def test_snake_kernel_run_edges(gen, dtype, up_x, t):
     """Kernel D's 16-sample runs: T shorter than one run, one run, one run
-    + 1 and one past a block's 4096 samples, on a [B, C, T] tensor and on
-    one that starts an odd number of elements into its storage (no 16-byte
-    vector is aligned there)."""
+    + 1, rows off the 16-byte grid (T = 3748, the 768-wide stage's, whose
+    runs start shifted) and one past a block's 4096 samples, on a [B, C, T]
+    tensor and on one that starts an odd number of elements into its
+    storage (the runs of every row start shifted there)."""
     b, c = 2, 3
     flat = _rn(gen, 1 + b * c * t, dtype=dtype, scale=2.0)
     a = torch.exp(_rn(gen, c, scale=0.3))

@@ -4,11 +4,11 @@ kernel D is held to on the card) against the Pallas fused_snake_pallas
 whole tensor, edges included: the port repeats each kernel's edge
 semantics (x replicate-padded by 8 samples).
 
-Tolerances: fp32 1e-5 absolute and relative (the Pallas polynomial sin^2
-is within 5e-7 of ``torch.sin``). bf16: at most one bf16 ulp on any
-element (relative 2^-7) and on no more than 1% of the elements: the two
-sides round at the same places and differ only where the sin^2 difference
-flips a rounding. A fused_snake computed the way fused_snake_nlc computes
+Tolerances: fp32 1e-5 absolute and relative (both sides take the Pallas
+polynomial sin^2, ``ops.snake.sin2`` in the port, and differ in the order
+of fp32 operations). bf16: at most one bf16 ulp on any element (relative
+2^-7) and on no more than 1% of the elements: the two sides round at the
+same places and differ only where an fp32 difference flips a rounding. A fused_snake computed the way fused_snake_nlc computes
 (fp32 upsample taps) differs on a third to a half of the elements, by up
 to two ulps; ``test_the_two_kernels_differ_in_bf16`` pins that.
 """
@@ -21,10 +21,11 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+from ditto_tts_tpu.ops.fastmath import sin2 as jsin2
 from ditto_tts_tpu.ops.snake_pallas import fused_snake_pallas
 from ditto_tts_tpu.ops.snake_pallas_nlc import fused_snake_nlc as jnlc
 
-from ditto_tts_tpu_torch.ops.snake import snake_coeffs
+from ditto_tts_tpu_torch.ops.snake import sin2, snake_coeffs
 from ditto_tts_tpu_torch.ops.snake_fused import (fused_snake,
                                                  fused_snake_nlc,
                                                  fused_snake_plain)
@@ -108,3 +109,21 @@ def test_the_two_kernels_differ_in_bf16():
     for got, want in ((as_nlc, want8), (as_ncl, want9)):
         with pytest.raises(AssertionError):
             _bf16_close(got, want)
+
+
+def test_sin2_matches_the_jax_fastmath_polynomial():
+    """The port's copy of the Pallas kernels' pi-periodic sin^2 (kernels C
+    and D and their plain versions take it) against the JAX
+    ``ops/fastmath.py:sin2``, to 1e-6 absolute over |x| <= 1e3, the
+    multiples of pi/2 (where the reduction switches n) included; and
+    within 1e-6 of sin(x)^2 in float64."""
+    rng = np.random.default_rng(3)
+    k = np.arange(-636, 637)
+    x = np.concatenate([rng.uniform(-1e3, 1e3, 20000),
+                        k * np.pi / 2, k * np.pi / 2 + 1e-4,
+                        k * np.pi / 2 - 1e-4, [0.0, 1e3, -1e3]])
+    x = x.astype(np.float32)
+    got = sin2(torch.from_numpy(x)).numpy()
+    want = np.asarray(jsin2(jnp.asarray(x)))
+    assert np.abs(got - want).max() <= 1e-6
+    assert np.abs(got - np.sin(x.astype(np.float64)) ** 2).max() <= 1e-6

@@ -10,8 +10,9 @@ Geometry: ``upsample_initial_channel=256`` gives an NLC stage at 128
 channels and an NCL-hybrid stage at 64; 96 gives two NCL-hybrid stages at
 48 and 24 (the widths of BigVGAN's last two stages). Tolerance: fp32
 compute and carry, 1e-4 absolute and relative (deep conv stacks summed in
-another order; the JAX fused kernels' polynomial sin^2 is within 5e-7 of
-the port's ``torch.sin``).
+another order; the port's fused kernels take the JAX fused kernels'
+polynomial sin^2, its polyphase and composed forms ``torch.sin``, within
+5e-7 of it).
 """
 
 import functools
@@ -25,6 +26,7 @@ import jax
 from ditto_tts_tpu.core.config import VocoderConfig
 from ditto_tts_tpu.models import vocoder as jvoc
 from ditto_tts_tpu.ops import conv_pallas as jcp
+from ditto_tts_tpu.ops import fir_gemm as jfg
 from ditto_tts_tpu.ops import snake_pallas as jsp
 
 from ditto_tts_tpu_torch.models import vocoder as tvoc
@@ -38,10 +40,16 @@ IMPLS = ("fused_conv", "polyphase", "polyphase_gemm", "composed",
 
 @pytest.fixture
 def tpu_dispatch(monkeypatch):
-    """The JAX vocoder's Pallas dispatch, run in interpret mode."""
+    """The JAX vocoder's Pallas dispatch, run in interpret mode. The JAX
+    band matrices of ``polyphase_gemm`` (``ops/fir_gemm.py:_band_matrix``,
+    an lru_cache) that this file's jit traces make are tracers: the cache
+    is emptied after each test, so no later eager call in the process (as
+    ``tests/test_snake_resample.py`` makes) is handed one."""
     monkeypatch.setattr(jcp, "FORCE_INTERPRET", True)
     monkeypatch.setattr(jsp, "fused_snake_pallas", functools.partial(
         jsp.fused_snake_pallas, interpret=True))
+    yield
+    jfg._band_matrix.cache_clear()
 
 
 def _cfg(init_ch, **kw):
