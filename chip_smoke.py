@@ -45,7 +45,23 @@ Phases (any failure exits non-zero and prints no result line):
      (widths 48 and 24 from 60032 mel frames, B=4; C 36 launches, half of
      them with the residual), card against CPU at B=1, and the JAX error
      at full width
-  8. a {"kernels": [...]} line, then the card line, then the last line
+  8. the SLP-driven chain (build_synthesize_with_slp: ByT5-small, the
+     one-layer SLP decoder with one 1472-wide head, then the DiT over a
+     max-length buffer) at max_audio_seconds=10 (750-frame buffer), B=4, 10
+     s prompts, 64 GPT2 and 64 ByT5 ids: warm-up, two timed requests, a
+     repeat of one seed that must be bitwise equal; per request exactly
+     the default path's launches (A 1200, B 90, C 54, D 0) and 2
+     matmul-softmax attention calls in the decoder (head_dim > 128) and 12
+     in ByT5 (biased), counted in the warm-up; the SLP, sampler and tail
+     stages and the predicted frames; one request at the default
+     AudioConfig (1024-frame buffer); SLP logits and frames, card against
+     CPU, B=1 per utterance, fp32
+  9. DDIM: the 10 s bucket at B=4 through build_synthesize_pipelined
+     (sampler_kind="ddim"; warm-up, two timed requests, the repeat; the
+     default path's launches); build_synthesize against it for one seed,
+     bitwise; ddim_sample at eta = 0 over the full-width DiT, card against
+     CPU at phase 5's shape; then default, SLP and DDIM requests in turns
+ 10. a {"kernels": [...]} line, then the card line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
 Weights are random (numpy seed 0, init_generator_params); nothing is
@@ -99,6 +115,10 @@ FUSED_PALLAS_PATH = {"attention": 1200, "conv1d": 90 + 54, "act_conv": 0,
                      "snake": 108}
 # BigVGAN's last two stages under aa_impl="fused_ncl", one forward
 FUSED_NCL_PATH = {"attention": 0, "conv1d": 4, "act_conv": 36, "snake": 0}
+# matmul-softmax attention per SLP-chain request (no kernel: JAX computes
+# both outside Pallas): the decoder's self and cross attention over one
+# 1472-wide head, and ByT5's biased attention in each of its 12 layers
+SLP_PLAIN_ATTENTION = {"decoder": 2, "byt5": 12}
 
 
 class ShapeLog:
@@ -143,6 +163,40 @@ class ShapeLog:
         for key, n in sorted(self.counts.items()):
             log(f"    {n:4d} x {key}")
         return dict(self.counts)
+
+
+class PlainAttentionLog:
+    """Counts the SLP chain's matmul-softmax attention calls while it is
+    entered, by caller and shape: it wraps ``attention_plain`` where the
+    decoder (``nn/transformer.py``) and ByT5 (``text/byt5.py``) look it up
+    at call time, and restores it after."""
+
+    def __enter__(self):
+        from ditto_tts_tpu_torch.nn import transformer
+        from ditto_tts_tpu_torch.text import byt5
+        self.mods = {"decoder": transformer, "byt5": byt5}
+        self.saved = {k: m.attention_plain for k, m in self.mods.items()}
+        self.counts = {k: 0 for k in self.mods}
+        self.shapes = {}
+
+        def logged(name, fn):
+            def call(q, k, v, **kw):
+                self.counts[name] += 1
+                key = (f"{name} {str(q.dtype)[6:]} B{q.shape[0]} "
+                       f"H{q.shape[1]} Sq{q.shape[2]} Sk{k.shape[2]} "
+                       f"D{q.shape[3]} causal={kw.get('causal', False)} "
+                       f"bias={kw.get('bias') is not None}")
+                self.shapes[key] = self.shapes.get(key, 0) + 1
+                return fn(q, k, v, **kw)
+            return call
+
+        for name, mod in self.mods.items():
+            mod.attention_plain = logged(name, self.saved[name])
+        return self
+
+    def __exit__(self, *exc):
+        for name, mod in self.mods.items():
+            mod.attention_plain = self.saved[name]
 
 
 def check_launches(path: str, launches: dict, per_request: dict, n: int):
@@ -813,6 +867,281 @@ def parity_phase(torch, np, cfg, params_cpu, params_gpu, rec):
 
 
 # --------------------------------------------------------------------------
+# phase 8: the SLP-driven chain
+# --------------------------------------------------------------------------
+
+def slp_inputs(torch, np, seed):
+    """10 s prompts at B=4, 64 GPT2 ids and 64 ByT5 ids, as
+    scripts/slp_chain_bench.py draws them."""
+    rng = np.random.default_rng(seed)
+    n = 24000 * 10
+    dev = torch.device("cuda")
+    audio = torch.from_numpy(
+        (0.05 * rng.standard_normal((4, 1, n))).astype(np.float32)).to(dev)
+    mask = torch.ones((4, n), dtype=torch.int32, device=dev)
+    text = torch.from_numpy(rng.integers(0, 50257, (4, 64))).to(dev)
+    bids = torch.from_numpy(rng.integers(3, 250, (4, 64))).to(dev)
+    bmask = torch.ones((4, 64), dtype=torch.int32, device=dev)
+    return audio, mask, text, bids, bmask
+
+
+def whole_mel_frames(wav, batch, frames, cfg) -> bool:
+    """The codec decodes frames * hop_length samples; the vocoder renders
+    the whole mel frames of that waveform, so up to one mel hop less."""
+    n = frames * cfg.codec.hop_length
+    return wav.shape[0] == batch and n - cfg.vocoder.hop_size < \
+        wav.shape[1] <= n
+
+
+def slp_phase(torch, np, cfg, params, params_cpu, rec):
+    import dataclasses
+    from ditto_tts_tpu_torch import kernels
+    from ditto_tts_tpu_torch.codec.encodec import codec_encode
+    from ditto_tts_tpu_torch.infer.generator import (
+        build_slp_stage_fns, build_synthesize_with_slp)
+    from ditto_tts_tpu_torch.params import init_slp_params, tree_map
+    from ditto_tts_tpu_torch.text.byt5 import byt5_encode, byt5_small_config
+
+    t0 = time.perf_counter()
+    extra = init_slp_params(cfg, seed=1)
+    p_cpu = dataclasses.replace(params_cpu, **extra)
+    p_gpu = dataclasses.replace(params, **{
+        k: tree_map(lambda t: t.cuda(), v) for k, v in extra.items()})
+    log(f"  ByT5-small and SLP parameters (numpy seed 1): "
+        f"{time.perf_counter() - t0:.1f} s")
+    scfg = cfg.replace(audio=cfg.audio.replace(max_audio_seconds=10.0))
+    max_frames = min(scfg.audio.max_latent_frames, scfg.dit.max_token_length)
+    dev = torch.device("cuda")
+    inputs = slp_inputs(torch, np, 21)
+    serve = build_synthesize_with_slp(scfg)
+    out = {}
+
+    kernels.reset_launches()
+    times, wavs = [], []
+    for i, seed in enumerate((7, 7, 8)):   # warm-up, then two timed requests
+        with PlainAttentionLog() if i == 0 else contextlib.nullcontext() \
+                as plain:
+            (wav, frames), dt = sync_time(
+                torch, serve, p_gpu, *inputs,
+                torch.Generator(device=dev).manual_seed(seed))
+        if i == 0:
+            plain_log = plain
+        check_wave(torch, wav, f"SLP chain seed {seed}")
+        times.append(dt)
+        wavs.append(wav)
+    launches = dict(kernels.launches)
+    frames = frames.tolist()
+    log(f"  10 s prompts B=4, {max_frames}-frame buffer: waveform "
+        f"{tuple(wavs[0].shape)}, warm-up {times[0]:.3f} s, requests "
+        f"{[round(t, 4) for t in times[1:]]} s; predicted frames {frames}; "
+        f"launches over 3 requests {launches}")
+    log(f"  matmul-softmax attention in one request: {plain_log.counts}")
+    for key, n in sorted(plain_log.shapes.items()):
+        log(f"    {n:4d} x {key}")
+    if not whole_mel_frames(wavs[0], 4, max_frames, scfg):
+        fail(f"SLP chain: waveform shape {tuple(wavs[0].shape)}")
+    if not torch.equal(wavs[0], wavs[1]):
+        fail("SLP chain: the same seed gave a different waveform")
+    if torch.equal(wavs[0], wavs[2]):
+        fail("SLP chain: different seeds gave the same waveform")
+    if not all(750 <= f <= 1500 and f % 75 == 0 for f in frames):
+        fail(f"SLP chain: frames {frames} are not 10-20 s at 75 a second")
+    check_launches("SLP chain", launches, DEFAULT_PATH, 3)
+    if plain_log.counts != SLP_PLAIN_ATTENTION:
+        fail(f"SLP chain: matmul-softmax attention calls {plain_log.counts},"
+             f" expected {SLP_PLAIN_ATTENTION}")
+    out["10s"] = {"batch": 4, "max_frames": max_frames,
+                  "warmup_s": times[0], "request_s": times[1:],
+                  "frames": frames, "launches_3_requests": launches,
+                  "plain_attention_per_request": plain_log.counts,
+                  "plain_attention_shapes": plain_log.shapes,
+                  "waveform_shape": list(wavs[0].shape)}
+
+    # the stages of one request (host clock, synchronized), and the SLP
+    # stage's two encoders alone
+    st = build_slp_stage_fns(scfg)
+    stages = {}
+    audio, mask, text, bids, bmask = inputs
+    with torch.inference_mode():
+        g = torch.Generator(device=dev).manual_seed(7)
+        (_, fr), stages["slp"] = sync_time(torch, st["slp"], p_gpu, audio,
+                                           mask, bids, bmask)
+        ref, stages["sampler"] = sync_time(torch, st["sampler"], p_gpu, text,
+                                           fr, g)
+        wav_s, stages["tail"] = sync_time(torch, st["tail"], p_gpu, ref)
+        _, stages["slp: codec encode"] = sync_time(
+            torch, codec_encode, p_gpu.codec, scfg.codec, audio, mask)
+        _, stages["slp: byt5 encode"] = sync_time(
+            torch, byt5_encode, p_gpu.byt5, byt5_small_config(), bids, bmask)
+    log("  10 s stages (s): " + ", ".join(f"{k} {v:.4f}"
+                                         for k, v in stages.items()))
+    if not torch.equal(wav_s, wavs[0]):
+        fail("SLP chain: the stage functions disagree with the serving path")
+    out["10s"]["stages_s"] = stages
+
+    # one request at the default AudioConfig: a 1024-frame buffer
+    serve_full = build_synthesize_with_slp(cfg)
+    full_frames = min(cfg.audio.max_latent_frames, cfg.dit.max_token_length)
+    kernels.reset_launches()
+    (wav, fr), dt = sync_time(torch, serve_full, p_gpu, *inputs,
+                              torch.Generator(device=dev).manual_seed(7))
+    launches_full = dict(kernels.launches)
+    check_wave(torch, wav, "SLP chain, default AudioConfig")
+    log(f"  default AudioConfig, {full_frames}-frame buffer, B=4: waveform "
+        f"{tuple(wav.shape)}, {dt:.3f} s (first request at this shape), "
+        f"frames {fr.tolist()}, launches {launches_full}")
+    if not whole_mel_frames(wav, 4, full_frames, cfg):
+        fail(f"SLP chain, default AudioConfig: waveform {tuple(wav.shape)}")
+    check_launches("SLP chain, default AudioConfig", launches_full,
+                   DEFAULT_PATH, 1)
+    out["default_audio"] = {"max_frames": full_frames, "request_s": [dt],
+                            "frames": fr.tolist(),
+                            "launches": launches_full}
+
+    # SLP logits and frames, card against CPU, fp32, each utterance at B=1
+    cmp = []
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for i in range(4):
+            one = [a[i:i + 1] for a in (audio, mask, bids, bmask)]
+            lg, fg = st["slp"](p_gpu, *one)
+            lc, fc = st["slp"](p_cpu, *[a.cpu() for a in one])
+            err = (lg.cpu() - lc).abs().max().item()
+            top2 = lc[0].topk(2).values
+            cmp.append({"max_abs_err": err,
+                        "max_abs_logit": lc.abs().max().item(),
+                        "top2_gap": (top2[0] - top2[1]).item(),
+                        "frames_card": fg.item(), "frames_cpu": fc.item()})
+    bad = []
+    for i, c in enumerate(cmp):
+        tol = 1e-4 * max(c["max_abs_logit"], 1.0)
+        tie = c["top2_gap"] <= tol
+        log(f"  utterance {i}: logits card vs CPU max|err| {c['max_abs_err']:.3e}"
+            f" (tol {tol:.1e}), frames {c['frames_card']} / {c['frames_cpu']}"
+            f", top-2 gap {c['top2_gap']:.3e}"
+            + (" (a near tie: the frames may differ)" if tie else ""))
+        if not c["max_abs_err"] <= tol:
+            bad.append(f"utterance {i} logits differ by {c['max_abs_err']}")
+        if c["frames_card"] != c["frames_cpu"] and not tie:
+            bad.append(f"utterance {i} frames {c['frames_card']} vs "
+                       f"{c['frames_cpu']}")
+    log(f"  card vs CPU: {time.perf_counter() - t0:.1f} s")
+    if bad:
+        fail("SLP card vs CPU: " + "; ".join(bad))
+    out["card_vs_cpu"] = cmp
+    rec["slp"] = out
+    return serve, p_gpu, inputs
+
+
+# --------------------------------------------------------------------------
+# phase 9: DDIM
+# --------------------------------------------------------------------------
+
+def ddim_phase(torch, np, cfg, params, params_cpu, inputs, slp, rec):
+    from ditto_tts_tpu_torch import kernels
+    from ditto_tts_tpu_torch.diffusion.sampler import (ddim_sample,
+                                                       respaced_timesteps)
+    from ditto_tts_tpu_torch.diffusion.schedule import NoiseSchedule
+    from ditto_tts_tpu_torch.infer.generator import (
+        build_stage_fns, build_synthesize, build_synthesize_pipelined)
+    from ditto_tts_tpu_torch.models import dit as dit_mod
+
+    serve = build_synthesize_pipelined(cfg, sampler_kind="ddim")
+    dev = torch.device("cuda")
+    out = {}
+    kernels.reset_launches()
+    times, wavs = [], []
+    for seed in (7, 7, 8):                  # warm-up, then two timed requests
+        wav, dt = sync_time(torch, serve, params, *inputs,
+                            torch.Generator(device=dev).manual_seed(seed))
+        check_wave(torch, wav, f"DDIM seed {seed}")
+        times.append(dt)
+        wavs.append(wav)
+    launches = dict(kernels.launches)
+    log(f"  10 s bucket B=4: warm-up {times[0]:.3f} s, requests "
+        f"{[round(t, 4) for t in times[1:]]} s; launches over 3 requests "
+        f"{launches}")
+    if not torch.equal(wavs[0], wavs[1]):
+        fail("DDIM: the same seed gave a different waveform")
+    if torch.equal(wavs[0], wavs[2]):
+        fail("DDIM: different seeds gave the same waveform")
+    check_launches("DDIM serving path", launches, DEFAULT_PATH, 3)
+    one = build_synthesize(cfg, sampler_kind="ddim")(
+        params, *inputs, torch.Generator(device=dev).manual_seed(7))
+    if not torch.equal(one, wavs[0]):
+        fail("DDIM: build_synthesize and build_synthesize_pipelined differ")
+    log("  build_synthesize equals build_synthesize_pipelined bit for bit")
+    out["10s"] = {"batch": 4, "warmup_s": times[0], "request_s": times[1:],
+                  "launches_3_requests": launches}
+
+    # stages: the sampler stage is DDPM (as in JAX), so DDIM's sampler is
+    # refine_indices less encode
+    st = build_stage_fns(cfg, sampler_kind="ddim")
+    stages = {}
+    audio, mask, text = inputs
+    with torch.inference_mode():
+        _, stages["encode"] = sync_time(torch, st["encode"], params, audio,
+                                        mask)
+        idx, stages["refine_indices"] = sync_time(
+            torch, st["refine_indices"], params, audio, mask, text,
+            torch.Generator(device=dev).manual_seed(7))
+        _, stages["indices_to_waveform"] = sync_time(
+            torch, st["indices_to_waveform"], params, idx, audio.shape[-1])
+    log("  10 s stages, DDIM (s): " + ", ".join(f"{k} {v:.4f}"
+                                               for k, v in stages.items()))
+    out["10s"]["stages_s"] = stages
+
+    # ddim_sample at eta = 0, full-width DiT, fp32, 1 s / B=1: card vs CPU
+    pdit = cfg.dit.replace(compute_dtype="float32")
+    sched = NoiseSchedule.cosine(pdit.diffusion_steps)
+    taus = respaced_timesteps(pdit.diffusion_steps, cfg.sampler.num_steps)
+    rng = np.random.default_rng(31)
+    frames = -(-24000 // cfg.codec.hop_length)
+    x_np = rng.standard_normal((1, frames, pdit.hidden_dim)).astype(
+        np.float32)
+    ids = torch.from_numpy(rng.integers(0, 50257, (1, 64)))
+
+    def run(p, device):
+        with torch.inference_mode():
+            te = p.gpt2["wte"]["weight"][ids.to(device)]
+            prep = dit_mod.prepare(p.dit, pdit, te, frames)
+            return ddim_sample(
+                lambda x, t: dit_mod.ditto_forward(p.dit, pdit, x, te, t,
+                                                   prepared=prep),
+                torch.from_numpy(x_np).to(device), sched, taus, eta=0.0,
+                generator=torch.Generator(device=device).manual_seed(0))
+
+    t0 = time.perf_counter()
+    got = run(params, "cuda").cpu()
+    want = run(params_cpu, "cpu")
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    log(f"  ddim_sample eta=0, 1 s B=1 fp32: card vs CPU max|err| {err:.3e} "
+        f"(scale {scale:.3e}, tol 1e-3 x scale), "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (torch.isfinite(want).all() and err <= 1e-3 * scale):
+        fail(f"DDIM card vs CPU: refined latents differ by {err} (scale "
+             f"{scale})")
+    out["card_vs_cpu"] = {"max_abs_err": err, "max_abs": scale}
+
+    # the three paths' requests in turns (default, SLP, DDIM, and back)
+    slp_serve, slp_params, slp_in = slp
+    default = build_synthesize_pipelined(cfg)
+    serves = {"default": lambda g: default(params, *inputs, g),
+              "slp": lambda g: slp_serve(slp_params, *slp_in, g),
+              "ddim": lambda g: serve(params, *inputs, g)}
+    turns = {k: [] for k in serves}
+    for name in ("default", "slp", "ddim", "ddim", "slp", "default"):
+        turns[name].append(sync_time(
+            torch, serves[name],
+            torch.Generator(device=dev).manual_seed(7))[1])
+    log("  10 s B=4 requests in turns (s): " + "; ".join(
+        f"{k} {[round(v, 4) for v in vs]}" for k, vs in turns.items()))
+    out["request_in_turns_s"] = turns
+    rec["ddim"] = out
+
+
+# --------------------------------------------------------------------------
 
 def main() -> None:
     if not (ROOT / "ditto_tts_tpu_torch" / "__init__.py").exists():
@@ -894,9 +1223,16 @@ def main() -> None:
     log('== 7. aa_impl="fused_ncl" on BigVGAN\'s last two stages')
     fused_ncl_phase(torch, np, cfg, params, rec)
 
+    log("== 8. the SLP-driven chain (ByT5-small, SLP, DiT, codec, BigVGAN)")
+    slp = slp_phase(torch, np, cfg, params, params_cpu, rec)
+
+    log("== 9. DDIM (eta 0): serving, one-function form, card vs CPU")
+    ddim_phase(torch, np, cfg, params, params_cpu, inputs, slp, rec)
+
     # launches per 10 s request (fused_ncl: per forward of its two stages)
     paths = {"default": DEFAULT_PATH, "fused_pallas": FUSED_PALLAS_PATH,
-             "fused_ncl": FUSED_NCL_PATH}
+             "fused_ncl": FUSED_NCL_PATH, "slp": DEFAULT_PATH,
+             "ddim": DEFAULT_PATH}
     sources = {
         "attention": "ditto_tts_tpu/ops/attention.py:95 pallas_attention "
                      "(#1) + :173 pallas_attention_packed (#2)",

@@ -1,13 +1,15 @@
-"""Reverse-diffusion DDPM sampling (the JAX ``diffusion/sampler.py``).
+"""Reverse-diffusion sampling (the JAX ``diffusion/sampler.py``): DDPM
 
   x_prev = (1/sqrt(a_t)) * (x - (1-a_t)/sqrt(1-abar_t) * eps_hat)
            + [t > 0] * sqrt(b_t) * z,   z ~ N(0, I)
 
-on a respaced schedule: for K < T steps the timestep subsequence is strided
-and per-step betas are re-derived from the cumprod ratio. The K-step loop
-is a Python loop; the per-step coefficients are fp32 scalars, as in JAX.
-Noise is drawn from a ``torch.Generator`` or supplied as ``noise_seq``.
-``ddim_sample`` is not ported yet.
+and DDIM (deterministic at eta = 0), on a respaced schedule: for K < T
+steps the timestep subsequence is strided and per-step betas are
+re-derived from the cumprod ratio. The K-step loop is a Python loop; the
+per-step coefficients are fp32 scalars, as in JAX. Both samplers take one
+noise draw per step (DDIM too, even where sigma is 0, as JAX draws from
+``fold_in(key, i)`` every step), from a ``torch.Generator`` or supplied as
+``noise_seq``.
 """
 
 from __future__ import annotations
@@ -90,4 +92,40 @@ def ddpm_sample(model_fn: Callable, x_init, schedule: NoiseSchedule,
             z = noise_seq[i]
         nonzero = 1.0 if t > 0 else 0.0
         x = mean + nonzero * torch.sqrt(beta_t) * z
+    return x
+
+
+def ddim_sample(model_fn: Callable, x_init, schedule: NoiseSchedule,
+                timesteps: np.ndarray, *, eta: float = 0.0, noise_seq=None,
+                generator: Optional[torch.Generator] = None,
+                clip_denoised: Optional[float] = None,
+                prediction_type: str = "eps"):
+    """DDIM sampling (deterministic at eta = 0) on a respaced schedule.
+
+    Arguments as ``ddpm_sample``. The clipped x0 gives back its eps;
+    sigma = eta * sqrt((1 - abar_prev) / (1 - abar_t))
+    * sqrt(1 - abar_t / abar_prev)."""
+    taus, abar, abar_prev, _, _ = _respaced_coeffs(schedule, timesteps)
+    x = x_init
+    batch = x.shape[0]
+    for i in range(taus.shape[0]):
+        t = int(taus[i])
+        abar_t, abar_p = abar[i], abar_prev[i]
+        t_vec = torch.full((batch,), t, dtype=torch.int64, device=x.device)
+        eps = to_eps(model_fn(x, t_vec), x, abar_t, prediction_type)
+        x0 = (x - torch.sqrt(1.0 - abar_t) * eps) / torch.sqrt(abar_t)
+        if clip_denoised is not None:
+            x0 = torch.clamp(x0, -clip_denoised, clip_denoised)
+            eps = (x - torch.sqrt(abar_t) * x0) / torch.sqrt(1.0 - abar_t)
+        sigma = eta * torch.sqrt((1.0 - abar_p) / (1.0 - abar_t)) \
+            * torch.sqrt(1.0 - abar_t / abar_p)
+        dir_xt = torch.sqrt(torch.clamp(1.0 - abar_p - sigma ** 2, min=0.0)) \
+            * eps
+        if noise_seq is None:
+            z = torch.randn(x.shape, generator=generator, dtype=x.dtype,
+                            device=x.device)
+        else:
+            z = noise_seq[i]
+        nonzero = 1.0 if t > 0 else 0.0
+        x = torch.sqrt(abar_p) * x0 + dir_xt + nonzero * sigma * z
     return x

@@ -1,16 +1,23 @@
-"""The DiTTo serving chain (the JAX ``infer/generator.py``).
+"""The DiTTo serving chains (the JAX ``infer/generator.py``).
 
   codec encode -> embedding head -> truncate to max_token_length frames ->
-  channel mean -> [q_sample at t=T-1] -> K-step DDPM over the DiT,
+  channel mean -> q_sample at t=T-1 -> K-step DDPM or DDIM over the DiT,
   conditioned on GPT2 wte text embeddings -> repeat to 2 codebook channels
   -> VectorQuantizer indices -> codec decode -> mel -> BigVGAN -> waveform.
 
 ``build_synthesize_pipelined`` is the serving entry point: the two halves
 of the JAX two-dispatch split (``refine_indices``, ``indices_to_waveform``)
-run back to back on one stream with no host round-trip. Noise comes from a
-``torch.Generator`` on the device. ``build_synthesize_recorded`` takes the
-prompt, init and per-step noise explicitly and returns the intermediates,
-for parity runs. ``build_stage_fns`` exposes the stages for timing.
+run back to back on one stream with no host round-trip.
+``build_synthesize`` is the JAX one-jit form of the same chain (refined
+latents straight to ``latents_to_waveform``). Noise comes from a
+``torch.Generator`` on the device, drawn as the JAX key split orders it:
+the prompt noise, x_init, then the sampler's per-step draws.
+``build_synthesize_recorded`` takes that noise explicitly and returns the
+intermediates, for parity runs. ``build_stage_fns`` exposes the stages for
+timing. ``build_synthesize_with_slp`` serves the SLP-driven chain: the SLP
+predicts each utterance's frames, the DiT denoises a max-length buffer and
+the frames past the prediction are zeroed (quirk #5 corrected);
+``build_slp_stage_fns`` exposes its stages.
 
 Entry points run on ``cuda`` unless built with ``device="cpu"``; inputs are
 moved to that device, and the parameters must already be there.
@@ -26,13 +33,15 @@ from .. import resolve_device
 from ..codec import encodec as codec_mod
 from ..codec import rvq as rvq_mod
 from ..config import PipelineConfig
-from ..diffusion.sampler import ddpm_sample, respaced_timesteps
+from ..diffusion.sampler import ddim_sample, ddpm_sample, respaced_timesteps
 from ..diffusion.schedule import NoiseSchedule, q_sample
 from ..models import dit as dit_mod
+from ..models import slp as slp_mod
 from ..models import vocoder as voc_mod
 from ..ops.mel import get_mel_spectrogram
 from ..params import GeneratorParams
 from ..text import gpt2 as gpt2_mod
+from ..text.byt5 import ByT5Config, byt5_small_config
 
 
 def encode_prompt_latents(params: GeneratorParams, cfg: PipelineConfig,
@@ -82,18 +91,29 @@ def latents_to_waveform(params: GeneratorParams, cfg: PipelineConfig,
     return indices_to_waveform(params, cfg, indices, output_length)
 
 
+def _schedule(cfg: PipelineConfig, num_steps: Optional[int]):
+    steps = cfg.sampler.num_steps if num_steps is None else num_steps
+    return (NoiseSchedule.cosine(cfg.dit.diffusion_steps),
+            respaced_timesteps(cfg.dit.diffusion_steps, steps))
+
+
 def _sample(params, cfg: PipelineConfig, schedule, taus, x_init, text_emb,
-            *, generator=None, noise_seq=None):
+            *, kind: str = "ddpm", generator=None, noise_seq=None):
     prep = dit_mod.prepare(params.dit, cfg.dit, text_emb, x_init.shape[1])
 
     def model_fn(x, t):
         return dit_mod.ditto_forward(params.dit, cfg.dit, x, text_emb, t,
                                      prepared=prep)
 
-    return ddpm_sample(model_fn, x_init, schedule, taus, noise_seq=noise_seq,
-                       generator=generator,
-                       clip_denoised=cfg.sampler.clip_denoised,
-                       prediction_type=cfg.dit.prediction_type)
+    common = dict(noise_seq=noise_seq, generator=generator,
+                  clip_denoised=cfg.sampler.clip_denoised,
+                  prediction_type=cfg.dit.prediction_type)
+    if kind == "ddim":
+        return ddim_sample(model_fn, x_init, schedule, taus,
+                           eta=cfg.sampler.ddim_eta, **common)
+    if kind != "ddpm":
+        raise ValueError(f"unknown sampler kind {kind!r}")
+    return ddpm_sample(model_fn, x_init, schedule, taus, **common)
 
 
 def _text_emb(params, cfg: PipelineConfig, text_ids):
@@ -101,30 +121,55 @@ def _text_emb(params, cfg: PipelineConfig, text_ids):
                                  text_ids[:, :cfg.dit.max_token_length])
 
 
-def build_stage_fns(cfg: PipelineConfig):
+def _denoiser(cfg: PipelineConfig, *, num_steps: Optional[int],
+              kind: str, cond_by_audio: bool, compat: bool):
+    """fn(params, latents, text_ids, generator) -> refined latents: the
+    prompt noise, x_init, then the sampler's draws from the generator
+    (JAX ``generator.py:250-287``); cond_by_audio starts from the noised
+    prompt, ref_compat noises it with the reference's schedule."""
+    schedule, taus = _schedule(cfg, num_steps)
+
+    def denoise(params, latents, text_ids, generator):
+        def draw():
+            return torch.randn(latents.shape, generator=generator,
+                               dtype=latents.dtype, device=latents.device)
+
+        prompt_noise, x_init = draw(), draw()
+        if cond_by_audio:
+            t_full = torch.full((latents.shape[0],),
+                                cfg.dit.diffusion_steps - 1,
+                                dtype=torch.int64)
+            x_init = q_sample(schedule, latents, t_full, prompt_noise,
+                              ref_compat=compat)
+        return _sample(params, cfg, schedule, taus, x_init,
+                       _text_emb(params, cfg, text_ids), kind=kind,
+                       generator=generator)
+
+    return denoise
+
+
+def build_stage_fns(cfg: PipelineConfig, *, num_steps: Optional[int] = None,
+                    sampler_kind: Optional[str] = None,
+                    cond_by_audio: bool = False,
+                    ref_compat: Optional[bool] = None):
     """The chain split into stages, each a plain function for timing:
     encode, sampler, vq_indices, codec_decode, mel, vocoder, and the two
     halves of the serving path (refine_indices, indices_to_waveform).
-    The sampler starts from noise (the JAX default, cond_by_audio=False)."""
-    if cfg.sampler.kind != "ddpm":
-        raise NotImplementedError("the port's sampler is DDPM; ddim_sample "
-                                  "is not ported yet")
-    schedule = NoiseSchedule.cosine(cfg.dit.diffusion_steps)
-    taus = respaced_timesteps(cfg.dit.diffusion_steps, cfg.sampler.num_steps)
+    The sampler stage is DDPM whatever ``sampler_kind`` says, as the JAX
+    stage is; it draws as ``refine_indices`` does, so under DDPM the
+    stages compose to the serving path bit for bit."""
+    kind = cfg.sampler.kind if sampler_kind is None else sampler_kind
+    compat = cfg.dit.ref_compat if ref_compat is None else ref_compat
+    opts = dict(num_steps=num_steps, cond_by_audio=cond_by_audio,
+                compat=compat)
+    sampler = _denoiser(cfg, kind="ddpm", **opts)
+    denoise = _denoiser(cfg, kind=kind, **opts)
 
     def encode(params, audio, padding_mask):
         return encode_prompt_latents(params, cfg, audio, padding_mask)
 
-    def sampler(params, latents, text_ids, generator):
-        text_emb = _text_emb(params, cfg, text_ids)
-        x_init = torch.randn(latents.shape, generator=generator,
-                             dtype=latents.dtype, device=latents.device)
-        return _sample(params, cfg, schedule, taus, x_init, text_emb,
-                       generator=generator)
-
     def vq_indices(params, refined):
-        return refined_to_indices(params, refined,
-                                  ref_exact=cfg.dit.ref_compat)
+        return refined_to_indices(params, refined, ref_exact=compat)
 
     def codec_decode(params, indices, output_length):
         return codec_mod.codec_decode(params.codec, cfg.codec, indices,
@@ -138,7 +183,7 @@ def build_stage_fns(cfg: PipelineConfig):
 
     def refine_indices(params, audio, padding_mask, text_ids, generator):
         latents = encode(params, audio, padding_mask)
-        return vq_indices(params, sampler(params, latents, text_ids,
+        return vq_indices(params, denoise(params, latents, text_ids,
                                           generator))
 
     def indices_to_wav(params, indices, output_length):
@@ -150,22 +195,36 @@ def build_stage_fns(cfg: PipelineConfig):
             "indices_to_waveform": indices_to_wav}
 
 
+def _on_dev(dev, a, dtype=torch.float32):
+    return None if a is None else torch.as_tensor(a, dtype=dtype).to(dev)
+
+
 def _inputs(dev, audio, padding_mask, text_ids):
-    audio = torch.as_tensor(audio, dtype=torch.float32).to(dev)
     mask = None if padding_mask is None else torch.as_tensor(
         padding_mask).to(dev)
-    return audio, mask, torch.as_tensor(text_ids, dtype=torch.int64).to(dev)
+    return (_on_dev(dev, audio), mask,
+            _on_dev(dev, text_ids, dtype=torch.int64))
 
 
-def build_synthesize_pipelined(cfg: PipelineConfig, *, device=None):
+def build_synthesize_pipelined(cfg: PipelineConfig, *,
+                               num_steps: Optional[int] = None,
+                               sampler_kind: Optional[str] = None,
+                               cond_by_audio: bool = False,
+                               ref_compat: Optional[bool] = None,
+                               device=None):
     """Serving entry point: fn(params, audio, padding_mask, text_ids,
     generator) -> waveform [B, L'].
 
     audio [B, 1, L] float, padding_mask [B, L] (1 = valid) or None,
     text_ids [B, St] GPT2 ids, generator a ``torch.Generator`` on the
-    device (None: the device's default generator)."""
+    device (None: the device's default generator). ``num_steps`` and
+    ``sampler_kind`` ("ddpm" | "ddim") default to ``cfg.sampler``,
+    ``ref_compat`` to ``cfg.dit.ref_compat``."""
     dev = resolve_device(device)
-    stages = build_stage_fns(cfg)
+    stages = build_stage_fns(cfg, num_steps=num_steps,
+                             sampler_kind=sampler_kind,
+                             cond_by_audio=cond_by_audio,
+                             ref_compat=ref_compat)
 
     @torch.inference_mode()
     def synthesize(params: GeneratorParams, audio, padding_mask, text_ids,
@@ -178,40 +237,63 @@ def build_synthesize_pipelined(cfg: PipelineConfig, *, device=None):
     return synthesize
 
 
+def build_synthesize(cfg: PipelineConfig, *, num_steps: Optional[int] = None,
+                     sampler_kind: Optional[str] = None,
+                     cond_by_audio: bool = False,
+                     ref_compat: Optional[bool] = None, device=None):
+    """The JAX one-jit form of ``build_synthesize_pipelined`` (same
+    arguments, same draws, the same waveform bit for bit): the refined
+    latents go to ``latents_to_waveform`` in one function."""
+    dev = resolve_device(device)
+    compat = cfg.dit.ref_compat if ref_compat is None else ref_compat
+    denoise = _denoiser(
+        cfg, num_steps=num_steps, cond_by_audio=cond_by_audio, compat=compat,
+        kind=cfg.sampler.kind if sampler_kind is None else sampler_kind)
+
+    @torch.inference_mode()
+    def synthesize(params: GeneratorParams, audio, padding_mask, text_ids,
+                   generator: Optional[torch.Generator] = None):
+        audio, mask, text_ids = _inputs(dev, audio, padding_mask, text_ids)
+        latents = encode_prompt_latents(params, cfg, audio, mask)
+        refined = denoise(params, latents, text_ids, generator)
+        return latents_to_waveform(params, cfg, refined, audio.shape[-1],
+                                   ref_exact_vq=compat)
+
+    return synthesize
+
+
 def build_synthesize_recorded(cfg: PipelineConfig, *,
+                              num_steps: Optional[int] = None,
+                              sampler_kind: Optional[str] = None,
                               cond_by_audio: bool = False,
                               ref_compat: Optional[bool] = None,
                               return_intermediates: bool = True,
                               device=None):
     """fn(params, audio, padding_mask, text_ids, prompt_noise, init_noise,
     step_noise) with explicit noise (prompt_noise [B, T, H]; init_noise
-    [B, T, H] or None when cond_by_audio; step_noise [K, B, T, H]).
+    [B, T, H] or None when cond_by_audio; step_noise [K, B, T, H], the
+    sampler's draws, which DDIM scales by sigma).
 
     Returns (waveform, intermediates) with latents, noised, refined,
     indices, codec_wav and mel, or the waveform alone."""
     dev = resolve_device(device)
     compat = cfg.dit.ref_compat if ref_compat is None else ref_compat
-    schedule = NoiseSchedule.cosine(cfg.dit.diffusion_steps)
-    taus = respaced_timesteps(cfg.dit.diffusion_steps, cfg.sampler.num_steps)
+    kind = cfg.sampler.kind if sampler_kind is None else sampler_kind
+    schedule, taus = _schedule(cfg, num_steps)
 
     @torch.inference_mode()
     def synthesize(params: GeneratorParams, audio, padding_mask, text_ids,
                    prompt_noise, init_noise, step_noise):
         audio, mask, text_ids = _inputs(dev, audio, padding_mask, text_ids)
-
-        def on_dev(a):
-            return None if a is None else torch.as_tensor(
-                a, dtype=torch.float32).to(dev)
-
         latents = encode_prompt_latents(params, cfg, audio, mask)
         text_emb = _text_emb(params, cfg, text_ids)
         t_full = torch.full((latents.shape[0],), cfg.dit.diffusion_steps - 1,
                             dtype=torch.int64)
-        noised = q_sample(schedule, latents, t_full, on_dev(prompt_noise),
-                          ref_compat=compat)
-        x_init = noised if cond_by_audio else on_dev(init_noise)
+        noised = q_sample(schedule, latents, t_full,
+                          _on_dev(dev, prompt_noise), ref_compat=compat)
+        x_init = noised if cond_by_audio else _on_dev(dev, init_noise)
         refined = _sample(params, cfg, schedule, taus, x_init, text_emb,
-                          noise_seq=on_dev(step_noise))
+                          kind=kind, noise_seq=_on_dev(dev, step_noise))
         indices = refined_to_indices(params, refined, ref_exact=compat)
         out, inter = indices_to_waveform(params, cfg, indices, audio.shape[-1],
                                          return_intermediates=True)
@@ -219,5 +301,90 @@ def build_synthesize_recorded(cfg: PipelineConfig, *,
             return out
         return out, {"latents": latents, "noised": noised, "refined": refined,
                      "indices": indices, **inter}
+
+    return synthesize
+
+
+# ---------------------------------------------------------------------------
+# the SLP-driven chain (JAX generator.py:367-418)
+# ---------------------------------------------------------------------------
+
+def build_slp_stage_fns(cfg: PipelineConfig, *,
+                        num_steps: Optional[int] = None,
+                        byt5_cfg: Optional[ByT5Config] = None):
+    """The stages of ``build_synthesize_with_slp``, each a plain function:
+
+      slp(params, audio, padding_mask, byt5_ids, byt5_mask)
+          -> (logits [B, nb_classes], frames [B])
+      sampler(params, text_ids, frames, generator, init_noise=None,
+              step_noise=None) -> refined [B, max_frames, H], zero past
+          each utterance's frames (x_init fp32, always DDPM, as in JAX)
+      tail(params, refined) -> waveform [B, max_frames * hop_length]
+
+    max_frames = min(cfg.audio.max_latent_frames, cfg.dit.max_token_length).
+    ``byt5_cfg`` None is byt5-small (JAX hard-codes it)."""
+    schedule, taus = _schedule(cfg, num_steps)
+    max_frames = min(cfg.audio.max_latent_frames, cfg.dit.max_token_length)
+    bcfg = byt5_small_config() if byt5_cfg is None else byt5_cfg
+
+    def slp(params, audio, padding_mask, byt5_ids, byt5_mask):
+        logits = slp_mod.slp_forward(
+            params.slp, params.byt5, params.codec, cfg.slp, bcfg, cfg.codec,
+            byt5_ids, byt5_mask, audio, padding_mask)
+        return logits, slp_mod.slp_predict_frames(
+            logits, frame_rate=cfg.audio.frame_rate,
+            min_seconds=int(cfg.audio.min_audio_seconds))
+
+    def sampler(params, text_ids, frames, generator=None, init_noise=None,
+                step_noise=None):
+        dev = text_ids.device
+        x_init = init_noise
+        if x_init is None:
+            x_init = torch.randn(
+                (text_ids.shape[0], max_frames, cfg.dit.hidden_dim),
+                generator=generator, dtype=torch.float32, device=dev)
+        refined = _sample(params, cfg, schedule, taus, x_init,
+                          _text_emb(params, cfg, text_ids),
+                          generator=generator, noise_seq=step_noise)
+        valid = torch.arange(max_frames, device=dev)[None, :] < frames[:, None]
+        return refined * valid[..., None]
+
+    def tail(params, refined):
+        # JAX line 415 passes no ref_compat: the VQ runs the default form
+        return latents_to_waveform(params, cfg, refined,
+                                   max_frames * cfg.codec.hop_length)
+
+    return {"slp": slp, "sampler": sampler, "tail": tail}
+
+
+def build_synthesize_with_slp(cfg: PipelineConfig, *,
+                              num_steps: Optional[int] = None,
+                              byt5_cfg: Optional[ByT5Config] = None,
+                              device=None):
+    """SLP-driven entry point: fn(params, audio, padding_mask, text_ids,
+    byt5_ids, byt5_mask, generator, *, init_noise=None, step_noise=None)
+    -> (waveform [B, max_frames * hop_length], frames [B]).
+
+    ``params`` carries ``byt5`` and ``slp``. The generator draws x_init,
+    then one draw per step; ``init_noise`` [B, max_frames, H] and
+    ``step_noise`` [K, B, max_frames, H] replace those draws (parity
+    runs)."""
+    dev = resolve_device(device)
+    st = build_slp_stage_fns(cfg, num_steps=num_steps, byt5_cfg=byt5_cfg)
+
+    @torch.inference_mode()
+    def synthesize(params: GeneratorParams, audio, padding_mask, text_ids,
+                   byt5_ids, byt5_mask,
+                   generator: Optional[torch.Generator] = None, *,
+                   init_noise=None, step_noise=None):
+        audio, mask, text_ids = _inputs(dev, audio, padding_mask, text_ids)
+        byt5_ids = _on_dev(dev, byt5_ids, dtype=torch.int64)
+        byt5_mask = None if byt5_mask is None else torch.as_tensor(
+            byt5_mask).to(dev)
+        _, frames = st["slp"](params, audio, mask, byt5_ids, byt5_mask)
+        refined = st["sampler"](params, text_ids, frames, generator,
+                                _on_dev(dev, init_noise),
+                                _on_dev(dev, step_noise))
+        return st["tail"](params, refined), frames
 
     return synthesize

@@ -1,0 +1,63 @@
+"""Post-LN transformer decoder with torch.nn.TransformerDecoder semantics
+(the JAX package's ``nn/transformer.py``), the SLP's decoder: causal
+self-attention, cross-attention to the ByT5 memory, ReLU feed-forward,
+post-norm with LN eps 1e-5, packed MHA ``in_proj`` layout.
+
+Attention by head width: a head wider than 128 takes the fp32
+matmul-softmax math (``attention_plain``, the counterpart of JAX's
+``sdpa_reference``), as JAX sends it there on every platform
+(``ops/attention.py:295-299``: the Pallas kernels stop at head_dim 128);
+any other head calls ``attention``, so kernel A on the card. The SLP's
+one head of 1472 is the first case.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+
+from ..ops.attention import attention, attention_plain
+from .core import dense, layer_norm
+
+MAX_KERNEL_HEAD_DIM = 128
+
+
+def _mha_apply(params, num_heads: int, q_in, kv_in, *, causal=False):
+    h = q_in.shape[-1]
+    w = params["in_proj_weight"]
+    b = params["in_proj_bias"]
+    q = dense({"weight": w[:h], "bias": b[:h]}, q_in)
+    k = dense({"weight": w[h:2 * h], "bias": b[h:2 * h]}, kv_in)
+    v = dense({"weight": w[2 * h:], "bias": b[2 * h:]}, kv_in)
+
+    def split(x):
+        bsz, s, _ = x.shape
+        return x.reshape(bsz, s, num_heads, h // num_heads).transpose(1, 2)
+
+    attend = attention if h // num_heads <= MAX_KERNEL_HEAD_DIM \
+        else attention_plain
+    out = attend(split(q), split(k), split(v), causal=causal)
+    bsz, _, s, _ = out.shape
+    return dense(params["out_proj"], out.transpose(1, 2).reshape(bsz, s, h))
+
+
+def transformer_decoder_layer(params: Dict, nhead: int, x, memory, *,
+                              causal_self: bool = True):
+    """One ``TransformerDecoderLayer``: x = LN(x + sublayer(x)) three times
+    (causal self-attention, cross-attention to memory, ReLU FF)."""
+    sa = _mha_apply(params["self_attn"], nhead, x, x, causal=causal_self)
+    x = layer_norm(params["norm1"], x + sa)
+    ca = _mha_apply(params["cross_attn"], nhead, x, memory)
+    x = layer_norm(params["norm2"], x + ca)
+    ff = dense(params["linear2"], torch.relu(dense(params["linear1"], x)))
+    return layer_norm(params["norm3"], x + ff)
+
+
+def transformer_decoder(layers: List[Dict], nhead: int, x, memory, *,
+                        causal_self: bool = True):
+    """``TransformerDecoder``: the layers in order (no final norm)."""
+    for p in layers:
+        x = transformer_decoder_layer(p, nhead, x, memory,
+                                      causal_self=causal_self)
+    return x

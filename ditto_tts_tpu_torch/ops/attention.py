@@ -7,7 +7,9 @@
 ``pallas_attention_packed``: flash attention on the tensor cores in bf16,
 exact fp32 on the CUDA cores in fp32) or raises. There is no length
 switch: on the card every call, self or cross, at every length, is the
-kernel.
+kernel. Attention that JAX never sends to Pallas (heads wider than 128, an
+additive bias: the SLP decoder and ByT5) calls ``attention_plain``
+directly, on any device.
 """
 
 from __future__ import annotations
@@ -23,14 +25,18 @@ from .. import kernels
 
 def attention_plain(q, k, v, *, causal: bool = False,
                     sm_scale: Optional[float] = None,
-                    kv_len: Optional[int] = None):
-    """softmax(Q K^T * scale) V with fp32 scores and softmax; the
+                    kv_len: Optional[int] = None, bias=None):
+    """softmax(Q K^T * scale + bias) V with fp32 scores and softmax; the
     probabilities are cast to v's type before the fp32-summed PV product
     (the JAX ``sdpa_reference`` and Pallas kernels do the same). Keys at
-    index >= ``kv_len`` are masked."""
+    index >= ``kv_len`` are masked. ``bias`` (fp32, broadcast to
+    [B, H, Sq, Sk]) is additive; kernel A takes none, so a call with a
+    bias is always this math, as in JAX (``ops/attention.py:300``)."""
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        scores = scores + bias
     sq, sk = scores.shape[-2:]
     mask = None
     if kv_len is not None and kv_len < sk:

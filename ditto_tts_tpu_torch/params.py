@@ -6,22 +6,27 @@ convs are [out, in, k], transposed convs [in, out, k], the LSTM has torch's
 gate order), so ``from_jax_params`` converts leaves and changes nothing
 else. ``init_generator_params`` makes a random tree of the same structure,
 shapes and init distributions as the JAX ``init_*`` functions from a numpy
-seed, for runs that have no JAX (the card's machine).
+seed, for runs that have no JAX (the card's machine); ``init_slp_params``
+does the same for the SLP chain's ByT5 and SLP trees, in a draw of its own
+so the six serving fields keep their values.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
-from .config import CodecConfig, DiTConfig, PipelineConfig, VocoderConfig
+from .config import (CodecConfig, DiTConfig, PipelineConfig, SLPConfig,
+                     VocoderConfig)
+from .text.byt5 import ByT5Config, byt5_small_config
 
 FIELDS = ("dit", "codec", "gpt2", "embedding_head", "vector_quantizer",
           "vocoder")
+SLP_FIELDS = ("byt5", "slp")     # only the SLP chain reads them
 
 
 def tree_map(fn: Callable, tree):
@@ -55,20 +60,24 @@ class GeneratorParams:
     embedding_head: Dict          # NAC: codes -> 768-wide latents
     vector_quantizer: Dict        # NAC: latents -> code indices
     vocoder: Dict
+    byt5: Optional[Dict] = None
+    slp: Optional[Dict] = None
 
     def to(self, device) -> "GeneratorParams":
         return GeneratorParams(**{
             f: tree_map(lambda t: t.to(device), getattr(self, f))
-            for f in FIELDS})
+            for f in FIELDS + SLP_FIELDS if getattr(self, f) is not None})
 
 
 def from_jax_params(tree: Mapping[str, Any]) -> GeneratorParams:
     """The JAX ``GeneratorParams`` fields (a mapping of field name to nested
-    dicts / lists of numpy arrays) as the port's CPU tensors. Leaves keep
-    their shapes, values and dtypes."""
+    dicts / lists of numpy arrays; ``byt5`` and ``slp`` where present and
+    not None) as the port's CPU tensors. Leaves keep their shapes, values
+    and dtypes."""
     return GeneratorParams(**{
         f: tree_map(lambda a: torch.from_numpy(np.array(a, copy=True)),
-                    tree[f]) for f in FIELDS})
+                    tree[f]) for f in FIELDS + SLP_FIELDS
+        if tree.get(f) is not None})
 
 
 # ---------------------------------------------------------------------------
@@ -233,6 +242,42 @@ def generator_spec(cfg: PipelineConfig, *, gpt2_vocab: int = 50257,
     }
 
 
+def byt5_spec(cfg: ByT5Config):
+    """text/byt5.py init_byt5: normals, RMS weights 1."""
+    d, nh, dff, inner = cfg.d_model, cfg.num_heads, cfg.d_ff, cfg.inner_dim
+    block = {
+        "attn": {"q": {"weight": _n((inner, d), (d * cfg.d_kv) ** -0.5)},
+                 "k": {"weight": _n((inner, d), d ** -0.5)},
+                 "v": {"weight": _n((inner, d), d ** -0.5)},
+                 "o": {"weight": _n((d, inner), inner ** -0.5)}},
+        "attn_norm": {"weight": _ones((d,))},
+        "ff": {"wi_0": {"weight": _n((dff, d), d ** -0.5)},
+               "wi_1": {"weight": _n((dff, d), d ** -0.5)},
+               "wo": {"weight": _n((d, dff), dff ** -0.5)}},
+        "ff_norm": {"weight": _ones((d,))},
+    }
+    return {"shared": {"weight": _n((cfg.vocab_size, d), 1.0)},
+            "block0_rel": {"relative_attention_bias": {"weight": _n(
+                (cfg.relative_attention_num_buckets, nh), inner ** -0.5)}},
+            "blocks": [block] * cfg.num_layers,
+            "final_norm": {"weight": _ones((d,))}}
+
+
+def slp_spec(cfg: SLPConfig, codebook_size: int):
+    """models/slp.py init_slp_trainable: an N(0, 1) embedding head, the
+    decoder layers (MHA as the DiT's, FF width embedding_dim * num_heads)
+    and the length predictor."""
+    d = cfg.embedding_dim
+    ff = d * cfg.num_heads
+    layer = {"self_attn": _mha(d), "cross_attn": _mha(d),
+             "linear1": _linear(d, ff), "linear2": _linear(ff, d),
+             "norm1": _layer_norm(d), "norm2": _layer_norm(d),
+             "norm3": _layer_norm(d)}
+    return {"embedding_head": {"weight": _n((codebook_size, d), 1.0)},
+            "decoder": [layer] * cfg.num_layers,
+            "length_predictor": _linear(d, cfg.nb_classes)}
+
+
 def fill_spec(spec, seed: int):
     """numpy fp32 arrays for a spec tree, drawn leaf by leaf in sorted-key
     order from ``np.random.default_rng(seed)``."""
@@ -260,3 +305,14 @@ def init_generator_params(cfg: PipelineConfig,
     and distributions (GPT2 at its default size, of which the serving chain
     reads only ``wte``), from one numpy seed."""
     return from_jax_params(fill_spec(generator_spec(cfg), seed))
+
+
+def init_slp_params(cfg: PipelineConfig, seed: int = 1,
+                    byt5_cfg: Optional[ByT5Config] = None) -> Dict:
+    """Random CPU fp32 ``byt5`` (byt5-small unless given) and ``slp`` trees,
+    from their own numpy seed: ``dataclasses.replace(params,
+    **init_slp_params(cfg))`` adds them to ``init_generator_params``'s
+    tree without changing its draws."""
+    spec = {"byt5": byt5_spec(byt5_cfg or byt5_small_config()),
+            "slp": slp_spec(cfg.slp, cfg.codec.codebook_size)}
+    return tree_map(torch.from_numpy, fill_spec(spec, seed))

@@ -20,8 +20,8 @@ from ditto_tts_tpu.models import vocoder as voc_mod
 from ditto_tts_tpu.text import gpt2 as gpt2_mod
 
 from ditto_tts_tpu_torch import config as tconfig
-from ditto_tts_tpu_torch.params import (FIELDS, fill_spec, from_jax_params,
-                                        generator_spec)
+from ditto_tts_tpu_torch.params import (FIELDS, SLP_FIELDS, fill_spec,
+                                        from_jax_params, generator_spec)
 
 # the tiny configs of tests/test_pipeline.py
 HID = 12
@@ -77,9 +77,19 @@ def jax_init_params(cfg=CFG, seed=0, gpt2_cfg=GPT2_CFG):
 
 
 def numpy_tree(jp):
-    """JAX GeneratorParams -> {field: nested dicts/lists of numpy}."""
+    """JAX GeneratorParams -> {field: nested dicts/lists of numpy}, with
+    ``byt5`` and ``slp`` when present."""
     return {f: jax.tree_util.tree_map(np.asarray, getattr(jp, f))
-            for f in FIELDS}
+            for f in FIELDS + SLP_FIELDS if getattr(jp, f) is not None}
+
+
+def jitter(tree, seed, scale=0.1):
+    """Every numpy leaf plus scale * N(0, 1), so norms' ones and biases'
+    zeros are not trivial in a parity test."""
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map(
+        lambda a: (a + scale * rng.standard_normal(a.shape)).astype(a.dtype),
+        tree)
 
 
 def port_params(jp):

@@ -4,6 +4,7 @@ that raise without CUDA, kernel wrappers with no CPU fallback."""
 
 import ast
 import dataclasses
+import hashlib
 import pathlib
 
 import numpy as np
@@ -14,12 +15,17 @@ import torch
 
 from ditto_tts_tpu.core import config as jconfig
 from ditto_tts_tpu.models import dit as jdit
+from ditto_tts_tpu.models import slp as jslp
+from ditto_tts_tpu.text import byt5 as jbyt5
 from ditto_tts_tpu.text import gpt2 as gpt2_mod
 
 from ditto_tts_tpu_torch import config as tconfig
 from ditto_tts_tpu_torch import kernels
-from ditto_tts_tpu_torch.params import (FIELDS, fill_spec, from_jax_params,
-                                        generator_spec, tree_leaves)
+from ditto_tts_tpu_torch.params import (FIELDS, SLP_FIELDS, byt5_spec,
+                                        fill_spec, from_jax_params,
+                                        generator_spec, init_slp_params,
+                                        slp_spec, tree_leaves)
+from ditto_tts_tpu_torch.text import byt5 as tbyt5
 
 from _torch_port_util import CFG, jax_generator_params, jax_init_params, \
     numpy_tree, port_params
@@ -102,6 +108,91 @@ def _shape_leaves(tree, prefix=""):
     return [(prefix, tuple(tree))]
 
 
+def _spec_shapes(spec, prefix=""):
+    """(path, shape) of a leaf-spec tree, in tree_leaves' order."""
+    if isinstance(spec, dict):
+        return [x for k in sorted(spec)
+                for x in _spec_shapes(spec[k], f"{prefix}/{k}")]
+    if isinstance(spec, list):
+        return [x for i, v in enumerate(spec)
+                for x in _spec_shapes(v, f"{prefix}/{i}")]
+    return [(prefix, spec[0])]
+
+
+@pytest.mark.parametrize("byt5_cfg,slp_cfg,codebook", [
+    (jbyt5.byt5_small_config(), jconfig.SLPConfig(), 1024),
+    (jbyt5.ByT5Config(vocab_size=40, d_model=16, d_kv=4, d_ff=32,
+                      num_layers=2, num_heads=2),
+     jconfig.SLPConfig(embedding_dim=16, num_layers=2, num_heads=2), 16)],
+    ids=["full_width", "tiny"])
+def test_byt5_and_slp_specs_have_the_jax_trees(byt5_cfg, slp_cfg, codebook):
+    """byt5_spec / slp_spec against jax.eval_shape of init_byt5 /
+    init_slp_trainable (the decoder's FF at embedding_dim * num_heads)."""
+    key = jax.random.key(0)
+    for spec, init in (
+            (byt5_spec(tbyt5.ByT5Config(**dataclasses.asdict(byt5_cfg))),
+             lambda: jbyt5.init_byt5(key, byt5_cfg)),
+            (slp_spec(tconfig.SLPConfig.from_json(slp_cfg.to_json()),
+                      codebook),
+             lambda: jslp.init_slp_trainable(key, slp_cfg, codebook))):
+        want = jax.tree_util.tree_map(lambda s: s.shape,
+                                      jax.eval_shape(init))
+        assert _spec_shapes(spec) == _shape_leaves(want)
+
+
+# sha256 of fill_spec(generator_spec(CFG, gpt2_layers=1), 0), every leaf's
+# path and bytes in tree_leaves order, as the seeded draws stood before the
+# ByT5 and SLP trees were added
+SERVING_DRAWS_SHA256 = \
+    "48b30d119f94aeca4151d62be1e6499bc9ddb1bec3827279f93b5b01250c83d5"
+
+
+def test_serving_draws_unchanged_by_the_slp_trees():
+    """The six serving fields keep their seeded values: ByT5 and SLP draw
+    from their own fill_spec call (init_slp_params)."""
+    tc = tconfig.PipelineConfig.from_json(CFG.to_json())
+    h = hashlib.sha256()
+    for path, a in tree_leaves(fill_spec(generator_spec(tc, gpt2_layers=1),
+                                         0)):
+        h.update(path.encode())
+        h.update(np.ascontiguousarray(a).tobytes())
+    assert h.hexdigest() == SERVING_DRAWS_SHA256
+    got = _init(0, 1)
+    assert got.byt5 is None and got.slp is None
+    small = tbyt5.ByT5Config(vocab_size=40, d_model=16, d_kv=4, d_ff=32,
+                             num_layers=1, num_heads=2)
+    extra = init_slp_params(tc, seed=1, byt5_cfg=small)
+    again = init_slp_params(tc, seed=1, byt5_cfg=small)
+    # RMS weights start at 1, as init_byt5's
+    assert torch.equal(extra["byt5"]["final_norm"]["weight"], torch.ones(16))
+    for f in SLP_FIELDS:
+        for (pa, a), (_, b) in zip(tree_leaves(extra[f]),
+                                   tree_leaves(again[f])):
+            assert torch.equal(a, b), pa
+    full = dataclasses.replace(got, **extra)
+    moved = full.to("cpu")
+    for f in FIELDS + SLP_FIELDS:
+        assert [p for p, _ in tree_leaves(getattr(moved, f))] == \
+            [p for p, _ in tree_leaves(getattr(full, f))], f
+
+
+def test_from_jax_params_carries_byt5_and_slp():
+    tc = tconfig.PipelineConfig.from_json(CFG.to_json())
+    jp = jax_generator_params()
+    extra = fill_spec({"byt5": byt5_spec(tbyt5.ByT5Config(
+        vocab_size=40, d_model=16, d_kv=4, d_ff=32, num_layers=1,
+        num_heads=2)), "slp": slp_spec(tc.slp, tc.codec.codebook_size)}, 2)
+    jp = dataclasses.replace(jp, byt5=extra["byt5"], slp=extra["slp"])
+    got = port_params(jp)
+    for f in SLP_FIELDS:
+        want = list(tree_leaves(extra[f]))
+        gl = list(tree_leaves(getattr(got, f)))
+        assert [p for p, _ in gl] == [p for p, _ in want]
+        for (path, g), (_, w) in zip(gl, want):
+            np.testing.assert_array_equal(g.numpy(), w, err_msg=f + path)
+    assert port_params(jax_generator_params()).slp is None
+
+
 def test_init_generator_params_is_seeded():
     a, b, c = _init(1, 1), _init(1, 1), _init(2, 1)
     wa = a.dit["proj_in"]["weight"]
@@ -141,13 +232,15 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 def test_entry_points_need_cuda_unless_cpu_is_asked():
     from ditto_tts_tpu_torch import resolve_device
     from ditto_tts_tpu_torch.infer.generator import (
-        build_synthesize_pipelined, build_synthesize_recorded)
+        build_synthesize, build_synthesize_pipelined,
+        build_synthesize_recorded, build_synthesize_with_slp)
     tc = tconfig.PipelineConfig.from_json(CFG.to_json())
     assert resolve_device("cpu").type == "cpu"
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
         return
-    for build in (build_synthesize_pipelined, build_synthesize_recorded):
+    for build in (build_synthesize_pipelined, build_synthesize_recorded,
+                  build_synthesize, build_synthesize_with_slp):
         with pytest.raises(RuntimeError, match="CUDA"):
             build(tc)
         build(tc, device="cpu")

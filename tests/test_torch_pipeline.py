@@ -99,10 +99,10 @@ def test_recorded_chain_matches_jax(params, monkeypatch, cfg, ref_compat,
 
 
 def test_pipelined_is_the_recorded_chain_with_generator_noise(params):
-    """The serving entry point draws the init noise, then one draw per
-    step, from the generator: replaying those draws through the recorded
-    form gives the same waveform, and the same seed gives the same
-    waveform."""
+    """The serving entry point draws the prompt noise, the init noise,
+    then one draw per step, from the generator (the order of the JAX key
+    split): replaying those draws through the recorded form gives the same
+    waveform, and the same seed gives the same waveform."""
     _, tp = params
     tcfg = to_torch_cfg(FP32_VOC)
     audio, mask, text, _ = _inputs(1)
@@ -115,12 +115,13 @@ def test_pipelined_is_the_recorded_chain_with_generator_noise(params):
     assert torch.isfinite(w1).all() and w1.abs().max() <= 1.0
 
     g = torch.Generator().manual_seed(11)
+    prompt = torch.randn((B, T, H), generator=g)
     init = torch.randn((B, T, H), generator=g)
     steps = torch.stack([torch.randn((B, T, H), generator=g)
                          for _ in range(tcfg.sampler.num_steps)])
     rec = build_synthesize_recorded(tcfg, device="cpu",
                                     return_intermediates=False)
-    w4 = rec(tp, audio, mask, text, torch.zeros(B, T, H), init, steps)
+    w4 = rec(tp, audio, mask, text, prompt, init, steps)
     torch.testing.assert_close(w4, w1, rtol=0, atol=0)
 
 
