@@ -5,7 +5,9 @@ same defaults, same JSON), kept here because the port imports nothing of
 the JAX package. Field comments that name JAX lowerings (``conv_impl``,
 ``layout``, ``aa_impl``) describe the JAX package's switches; the port
 reads only the fields that change numbers (dtypes, geometry, sampler) and
-always takes its own kernels on the card.
+always takes its own kernels on the card. ``ByT5Config`` (the JAX
+``text/byt5.py`` dataclass) lives here too, so ``params.py`` reads no
+model module.
 
 Mirrors the reference's hyperparameter vocabulary (ref: src/utils/Config.py:3-151
 — BaseConfig/ConfigNAC/ConfigSLP/ConfigDiTTO static classes) as serializable
@@ -115,6 +117,32 @@ class SLPConfig(_JsonMixin):
     epochs: int = 20
     learning_rate: float = 1e-4
     batch_size: int = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class ByT5Config:
+    """The SLP's ByT5 encoder (the JAX ``text/byt5.py`` dataclass, kept here
+    so the weight specs in ``params.py`` need no model code). byt5-small:
+    vocab 384, d_model 1472, d_ff 3584, 12 layers, 6 heads of 64, 32
+    buckets up to distance 128."""
+
+    vocab_size: int = 384
+    d_model: int = 1472
+    d_kv: int = 64
+    d_ff: int = 3584
+    num_layers: int = 12
+    num_heads: int = 6
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    layer_norm_epsilon: float = 1e-6
+
+    @property
+    def inner_dim(self) -> int:
+        return self.num_heads * self.d_kv
+
+
+def byt5_small_config() -> ByT5Config:
+    return ByT5Config()
 
 
 @dataclasses.dataclass(frozen=True)

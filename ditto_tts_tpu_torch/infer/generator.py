@@ -8,8 +8,8 @@
 ``build_synthesize_pipelined`` is the serving entry point: the two halves
 of the JAX two-dispatch split (``refine_indices``, ``indices_to_waveform``)
 run back to back on one stream with no host round-trip.
-``build_synthesize`` is the JAX one-jit form of the same chain (refined
-latents straight to ``latents_to_waveform``). Noise comes from a
+``build_synthesize``, the JAX one-jit entry point, returns the same
+function. Noise comes from a
 ``torch.Generator`` on the device, drawn as the JAX key split orders it:
 the prompt noise, x_init, then the sampler's per-step draws.
 ``build_synthesize_recorded`` takes that noise explicitly and returns the
@@ -32,7 +32,7 @@ import torch
 from .. import resolve_device
 from ..codec import encodec as codec_mod
 from ..codec import rvq as rvq_mod
-from ..config import PipelineConfig
+from ..config import ByT5Config, PipelineConfig, byt5_small_config
 from ..diffusion.sampler import ddim_sample, ddpm_sample, respaced_timesteps
 from ..diffusion.schedule import NoiseSchedule, q_sample
 from ..models import dit as dit_mod
@@ -41,7 +41,6 @@ from ..models import vocoder as voc_mod
 from ..ops.mel import get_mel_spectrogram
 from ..params import GeneratorParams
 from ..text import gpt2 as gpt2_mod
-from ..text.byt5 import ByT5Config, byt5_small_config
 
 
 def encode_prompt_latents(params: GeneratorParams, cfg: PipelineConfig,
@@ -241,25 +240,12 @@ def build_synthesize(cfg: PipelineConfig, *, num_steps: Optional[int] = None,
                      sampler_kind: Optional[str] = None,
                      cond_by_audio: bool = False,
                      ref_compat: Optional[bool] = None, device=None):
-    """The JAX one-jit form of ``build_synthesize_pipelined`` (same
-    arguments, same draws, the same waveform bit for bit): the refined
-    latents go to ``latents_to_waveform`` in one function."""
-    dev = resolve_device(device)
-    compat = cfg.dit.ref_compat if ref_compat is None else ref_compat
-    denoise = _denoiser(
-        cfg, num_steps=num_steps, cond_by_audio=cond_by_audio, compat=compat,
-        kind=cfg.sampler.kind if sampler_kind is None else sampler_kind)
-
-    @torch.inference_mode()
-    def synthesize(params: GeneratorParams, audio, padding_mask, text_ids,
-                   generator: Optional[torch.Generator] = None):
-        audio, mask, text_ids = _inputs(dev, audio, padding_mask, text_ids)
-        latents = encode_prompt_latents(params, cfg, audio, mask)
-        refined = denoise(params, latents, text_ids, generator)
-        return latents_to_waveform(params, cfg, refined, audio.shape[-1],
-                                   ref_exact_vq=compat)
-
-    return synthesize
+    """The JAX one-jit entry point, kept for API parity. Eager PyTorch has
+    no one-jit versus two-dispatch split, so it is
+    ``build_synthesize_pipelined`` with the same arguments."""
+    return build_synthesize_pipelined(
+        cfg, num_steps=num_steps, sampler_kind=sampler_kind,
+        cond_by_audio=cond_by_audio, ref_compat=ref_compat, device=device)
 
 
 def build_synthesize_recorded(cfg: PipelineConfig, *,

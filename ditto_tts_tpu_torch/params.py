@@ -20,9 +20,8 @@ from typing import Any, Callable, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from .config import (CodecConfig, DiTConfig, PipelineConfig, SLPConfig,
-                     VocoderConfig)
-from .text.byt5 import ByT5Config, byt5_small_config
+from .config import (ByT5Config, CodecConfig, DiTConfig, PipelineConfig,
+                     SLPConfig, VocoderConfig, byt5_small_config)
 
 FIELDS = ("dit", "codec", "gpt2", "embedding_head", "vector_quantizer",
           "vocoder")

@@ -16,36 +16,15 @@ byt5-small: vocab 384, d_model 1472, d_ff 3584, 12 layers, 6 heads of 64,
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Dict
 
 import numpy as np
 import torch
 
+from ..config import ByT5Config, byt5_small_config  # noqa: F401 (re-export)
 from ..nn.core import dense
 from ..ops.attention import attention_plain
 from .gpt2 import gelu_new
-
-
-@dataclasses.dataclass(frozen=True)
-class ByT5Config:
-    vocab_size: int = 384
-    d_model: int = 1472
-    d_kv: int = 64
-    d_ff: int = 3584
-    num_layers: int = 12
-    num_heads: int = 6
-    relative_attention_num_buckets: int = 32
-    relative_attention_max_distance: int = 128
-    layer_norm_epsilon: float = 1e-6
-
-    @property
-    def inner_dim(self) -> int:
-        return self.num_heads * self.d_kv
-
-
-def byt5_small_config() -> ByT5Config:
-    return ByT5Config()
 
 
 def rms_norm(weight, x, eps=1e-6):

@@ -48,6 +48,16 @@ def test_config_json_equals_jax(name):
         type(jc).from_json(jc.to_json()))
 
 
+def test_byt5_config_equals_jax():
+    """ByT5Config lives in the port's config.py (params.py reads no model
+    module) with the JAX text/byt5.py fields and defaults; text.byt5 still
+    exports it."""
+    jc, tc = jbyt5.byt5_small_config(), tconfig.byt5_small_config()
+    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    assert tc.inner_dim == jc.inner_dim
+    assert tbyt5.ByT5Config is tconfig.ByT5Config
+
+
 def test_config_json_roundtrip_nondefault():
     jc = CFG
     tc = tconfig.PipelineConfig.from_json(jc.to_json())

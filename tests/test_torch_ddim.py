@@ -5,7 +5,7 @@ Tolerances: the sampler 1e-4 of the trajectory's scale (the first reverse
 step divides by sqrt(abar_t), which scales fp32 round-off, as in
 test_torch_dit_sampler.py's DDPM case); the chains' waveforms 1e-4 with
 the fp32 vocoder, as test_torch_pipeline.py holds the default chain; the
-port's one-function and pipelined forms bit for bit."""
+port's build_synthesize, pipelined and recorded forms bit for bit."""
 
 import functools
 
