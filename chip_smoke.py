@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's DiTTo serving chain on one NVIDIA H100.
+"""Drive the PyTorch/CUDA port's DiTTo serving chain and its training step
+on one NVIDIA H100.
 
     python3 chip_smoke.py        (from the root of a checkout; one CUDA card)
 
@@ -64,11 +65,28 @@ Phases (any failure exits non-zero and prints no result line):
      default path's launches); build_synthesize against it for one seed,
      bitwise; ddim_sample at eta = 0 over the full-width DiT, card against
      CPU at phase 5's shape and tolerance; then default, SLP and DDIM requests in turns
- 10. a {"kernels": [...]} line, then the card line, then the last line
+ 10. DiTTo training at full width (build_ditto_train_step: the 12-layer
+     768-wide DiT with bf16 blocks, remat, output-mode cross-attention
+     dropout 0.1, flat AdamW at lr 1e-4; B=8 of the 10 s bucket, 1024 GPT2
+     ids cut to 750): an audio leg (the fp32 frozen encode through kernel
+     B) and a latent leg, each a warm-up and 5 timed synchronized steps
+     (step s, audio-s/s, peak memory, finite losses) with exact launches
+     per step (A 48: 24 in the forward, 24 in the remat recompute, none in
+     the backward; B 14 in the audio leg's encode; C, D 0), A 24 in a
+     step without remat and in eval_fn; kernel A's gradient against
+     autograd through its plain version (self and cross at B8 H12 S750,
+     causal at S1024, bf16 and fp32); one fp32 step card vs CPU (1 s clip,
+     B=1, dropout 0, the same t and noise: loss, mu, nu, params); two
+     steps from one state and seed bitwise equal; remat against none at 2
+     layers, fp32, dropout on; a checkpoint of the full train state
+     saved, restored and stepped bitwise equal; Trainer.fit (1 layer, 2
+     epochs x 2 steps) writes its files and resumes from epoch 2
+ 11. a {"kernels": [...]} line, then the card line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
-Weights are random (numpy seed 0, init_generator_params); nothing is
-downloaded. With DITTO_RECORD_DIR set, a JSON record of every number goes
+Weights are random (numpy seed 0, init_generator_params and
+init_dit_train_state); nothing is downloaded. Phase 10's checkpoints go to
+.chip_smoke_tmp/ in the checkout and are removed after it. With DITTO_RECORD_DIR set, a JSON record of every number goes
 to $DITTO_RECORD_DIR/chip_smoke.json.
 """
 
@@ -1219,6 +1237,340 @@ def ddim_phase(torch, np, cfg, params, params_cpu, inputs, slp, rec):
 
 
 # --------------------------------------------------------------------------
+# phase 10: DiTTo training at full width
+# --------------------------------------------------------------------------
+
+# the repo's training setup (scripts/train_bench.py, scripts/train_ditto.py):
+# 12 x 768 DiT, bf16 blocks, remat, output-mode cross-attention dropout
+# 0.1, flat AdamW at lr 1e-4, weight decay 1e-6; B=8 of the 10 s bucket
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SAMPLES, TRAIN_LR = 12, 8, 240000, 1e-4
+TRAIN_TIMED = 5
+# reduced depth for the remat comparison and Trainer.fit (whose checkpoints
+# are compressed .npz, ~16 MB/s to write)
+REMAT_LAYERS, FIT_LAYERS = 2, 1
+
+
+def train_step_launches(dcfg, codec_cfg, audio: bool, *, remat=True) -> dict:
+    """Kernel launches of one DiTTo train step: A in every attention of the
+    forward (self and cross, each layer) and again in the remat recompute,
+    none from the backward; B in the audio leg's frozen encode, once per
+    stride-1 SEANet conv (init, final, and each resblock's three)."""
+    a = 2 * dcfg.num_layers * (2 if remat else 1)
+    b = 2 + 3 * len(codec_cfg.ratios) * codec_cfg.num_residual_layers
+    return {"attention": a, "conv1d": b if audio else 0, "act_conv": 0,
+            "snake": 0}
+
+
+def grad_check_a(torch, checks, label, shape_q, shape_k, causal, dtype, dev,
+                 seed):
+    """dq, dk, dv through kernel A's Function (kernel forward, stock-op
+    backward) against autograd through attention_plain, on the card."""
+    from ditto_tts_tpu_torch.ops.attention import attention, attention_plain
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ops = [torch.randn(s, generator=gen, device=dev).to(dtype)
+           for s in (shape_q, shape_k, shape_k)]
+    g = torch.randn(shape_q, generator=gen, device=dev).to(dtype)
+    a = [t.clone().requires_grad_() for t in ops]
+    got = torch.autograd.grad(attention(*a, causal=causal), a, g)
+    p = [t.clone().requires_grad_() for t in ops]
+    want = torch.autograd.grad(attention_plain(*p, causal=causal), p, g)
+    dn = str(dtype).split(".")[1]
+    return {f"d{n} {dn} {label}": checks.compare(
+        "attention", f"grad d{n} {dn} {label}", x, y, dn)
+        for n, x, y in zip("qkv", got, want)}
+
+
+def train_phase(torch, np, params, params_cpu, card, rec):
+    import shutil
+    from ditto_tts_tpu_torch import kernels
+    from ditto_tts_tpu_torch.config import CodecConfig, DiTConfig, GPT2Config
+    from ditto_tts_tpu_torch.kernel_bench import eager_ms
+    from ditto_tts_tpu_torch.models import nac as nac_mod
+    from ditto_tts_tpu_torch.ops.attention import attention_backward
+    from ditto_tts_tpu_torch.params import (init_dit_train_state, ravel_tree,
+                                            tree_map)
+    from ditto_tts_tpu_torch.train.checkpoint import (restore_into,
+                                                      save_checkpoint)
+    from ditto_tts_tpu_torch.train.steps import build_ditto_train_step
+    from ditto_tts_tpu_torch.train.trainer import Trainer
+
+    dev = params.dit["proj_in"]["weight"].device
+    out = {"card": card}
+    dcfg = DiTConfig(num_layers=TRAIN_LAYERS, num_heads=12,
+                     remat_blocks=True, compute_dtype="bfloat16")
+    ccfg, gcfg = CodecConfig(), GPT2Config()
+    frames = TRAIN_SAMPLES // ccfg.hop_length
+
+    def frozen_of(p):
+        return {"codec": p.codec, "gpt2": {"wte": p.gpt2["wte"]},
+                "embedding_head": p.embedding_head}
+
+    def on(device, tree):
+        return tree_map(lambda t: t.to(device), tree)
+
+    frozen = frozen_of(params)
+    rng = np.random.default_rng(1)
+    text = torch.from_numpy(rng.integers(0, gcfg.vocab_size,
+                                         (TRAIN_BATCH, 1024))).to(dev)
+    legs = {
+        "audio": {"audio": torch.from_numpy(0.05 * rng.standard_normal(
+                      (TRAIN_BATCH, 1, TRAIN_SAMPLES)).astype(np.float32)
+                  ).to(dev),
+                  "padding_mask": torch.ones((TRAIN_BATCH, TRAIN_SAMPLES),
+                                             dtype=torch.int32, device=dev),
+                  "text_ids": text},
+        "latents": {"latents": torch.from_numpy(rng.standard_normal(
+                        (TRAIN_BATCH, frames, dcfg.hidden_dim)).astype(
+                        np.float32)).to(dev),
+                    "text_ids": text}}
+    state0 = on(dev, init_dit_train_state(dcfg, seed=0))
+    n_params = ravel_tree(state0["params"])[0].numel()
+    init_state, step_fn, eval_fn = build_ditto_train_step(
+        dcfg, ccfg, gcfg, learning_rate=TRAIN_LR)
+    log(f"  DiT {dcfg.num_layers} x {dcfg.hidden_dim}, {n_params} parameters, "
+        f"bf16 blocks, remat ({dcfg.remat_policy}), {dcfg.attn_dropout_mode}-"
+        f"mode dropout {dcfg.cross_attn_dropout}; B={TRAIN_BATCH}, "
+        f"{frames} frames, 1024 GPT2 ids cut to {frames}")
+
+    # the encode's kernel B launches, counted on their own
+    kernels.reset_launches()
+    with torch.no_grad():
+        nac_mod.audio_encoder({"embedding_head": params.embedding_head},
+                              params.codec, ccfg, legs["audio"]["audio"])
+    torch.cuda.synchronize()
+    encode_b = kernels.launches["conv1d"]
+
+    # ---- the two legs: warm-up, then timed synchronized steps ----
+    final = {}
+    for name, batch in legs.items():
+        want = train_step_launches(dcfg, ccfg, name == "audio")
+        if name == "audio" and encode_b != want["conv1d"]:
+            fail(f"train: the encode launched B {encode_b} times, expected "
+                 f"{want['conv1d']}")
+        gen = torch.Generator(device=dev).manual_seed(1)
+        st, m = step_fn(state0, frozen, batch, gen)
+        torch.cuda.synchronize()
+        losses = [m["loss"].item()]
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        times = []
+        for _ in range(TRAIN_TIMED):
+            (st, m), dt = sync_time(torch, step_fn, st, frozen, batch, gen)
+            times.append(dt)
+            losses.append(m["loss"].item())
+        launches = dict(kernels.launches)
+        peak = torch.cuda.max_memory_allocated()
+        step_s = sorted(times)[len(times) // 2]
+        log(f"  {name} leg: steps {[round(t, 4) for t in times]} s (median "
+            f"{step_s:.4f} s, {TRAIN_BATCH * 10 / step_s:.1f} audio-s/s), "
+            f"peak {peak / 2**30:.2f} GiB, losses "
+            f"{[round(x, 4) for x in losses]}, launches over "
+            f"{TRAIN_TIMED} steps {launches} ({card})")
+        if not all(np.isfinite(losses)):
+            fail(f"train {name} leg: non-finite loss {losses}")
+        check_launches(f"train step, {name} leg", launches, want, TRAIN_TIMED)
+        out[name] = {"step_s": times, "median_step_s": step_s,
+                     "audio_s_per_s": TRAIN_BATCH * 10 / step_s,
+                     "peak_bytes": peak, "losses": losses,
+                     "launches": launches}
+        final[name] = st
+
+    # ---- A without remat (forward only) and in eval ----
+    _, step_plain, _ = build_ditto_train_step(
+        dcfg.replace(remat_blocks=False), ccfg, gcfg,
+        learning_rate=TRAIN_LR)
+    counts = {}
+    for label, fn in (("step without remat", lambda: step_plain(
+            state0, frozen, legs["latents"],
+            torch.Generator(device=dev).manual_seed(1))),
+                      ("eval_fn", lambda: eval_fn(
+            state0, frozen, legs["latents"],
+            torch.Generator(device=dev).manual_seed(1)))):
+        kernels.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        counts[label] = dict(kernels.launches)
+        check_launches(f"train, {label}", counts[label],
+                       train_step_launches(dcfg, ccfg, False, remat=False), 1)
+    log(f"  A launches: {counts} (the backward adds none)")
+    out["launches_no_remat_and_eval"] = counts
+
+    # ---- kernel A's gradient against the plain version ----
+    checks = Checks()
+    errs = {}
+    b, h = TRAIN_BATCH, dcfg.num_heads
+    for dt in (torch.bfloat16, torch.float32):
+        # self and cross attention have one shape: the text ids are cut
+        # to the latents' length
+        for seed, (label, sq, sk, causal) in enumerate((
+                ("self", frames, frames, False),
+                ("cross", frames, frames, False),
+                ("causal S1024 (GPT2)", 1024, 1024, True))):
+            bb = 4 if causal else b
+            errs.update(grad_check_a(
+                torch, checks, f"B{bb} H{h} Sq{sq} Sk{sk} D64 {label}",
+                (bb, h, sq, 64), (bb, h, sk, 64), causal, dt, dev, seed))
+    if checks.bad:
+        fail("kernel A gradient: " + "; ".join(checks.bad))
+    out["a_grad_max_abs_err"] = errs
+
+    # ---- the attention backward's share of a step (speed item S10) ----
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q, k, v, g = (torch.randn(b, h, frames, 64, generator=gen, device=dev)
+                  .to(torch.bfloat16) for _ in range(4))
+    bwd_ms = eager_ms(torch, lambda: attention_backward(q, k, v, g))
+    calls = 2 * dcfg.num_layers
+    share = {leg: calls * bwd_ms / 1e3 / out[leg]["median_step_s"]
+             for leg in legs}
+    log(f"  attention backward (stock ops, bf16 B{b} H{h} S{frames} D64): "
+        f"{bwd_ms:.3f} ms a call, {calls} a step: {calls * bwd_ms:.1f} ms, "
+        + ", ".join(f"{v:.1%} of the {k} leg's step" for k, v in
+                    share.items()))
+    out["attention_backward"] = {"ms_per_call": bwd_ms,
+                                 "calls_per_step": calls, "share": share}
+
+    # ---- one fp32 step, card vs CPU ----
+    pcfg = dcfg.replace(compute_dtype="float32", cross_attn_dropout=0.0)
+    _, step32, _ = build_ditto_train_step(pcfg, ccfg, gcfg,
+                                          learning_rate=TRAIN_LR)
+    prng = np.random.default_rng(5)
+    clip = {"audio": torch.from_numpy(0.05 * prng.standard_normal(
+                (1, 1, 24000)).astype(np.float32)),
+            "text_ids": torch.from_numpy(prng.integers(0, gcfg.vocab_size,
+                                                       (1, 64)))}
+    t = torch.from_numpy(prng.integers(0, pcfg.diffusion_steps, (1,)))
+    noise = torch.from_numpy(prng.standard_normal(
+        (1, 24000 // ccfg.hop_length, pcfg.hidden_dim)).astype(np.float32))
+    cpu_state = init_dit_train_state(pcfg, seed=0)
+    t0 = time.perf_counter()
+    got, gm = step32(on(dev, cpu_state), frozen, on(dev, clip), t=t,
+                     noise=noise)
+    want, wm = step32(cpu_state, frozen_of(params_cpu), clip, t=t,
+                      noise=noise)
+    # tolerances: the loss and the updated parameters 1e-5 of their scale,
+    # the moments (the gradient summed over 12 layers in another order)
+    # 1e-4 of theirs
+    cmp = {"loss": (gm["loss"], wm["loss"], 1e-5),
+           "mu": (got["opt_state"][0]["mu"], want["opt_state"][0]["mu"],
+                  1e-4),
+           "nu": (got["opt_state"][0]["nu"], want["opt_state"][0]["nu"],
+                  1e-4),
+           "params": (ravel_tree(got["params"])[0],
+                      ravel_tree(want["params"])[0], 1e-5)}
+    res = {}
+    for key, (x, y, tol) in cmp.items():
+        err = (x.cpu() - y).abs().max().item()
+        scale = y.abs().max().item()
+        res[key] = {"max_abs_err": err, "scale": scale, "tol": tol}
+        if not (np.isfinite(scale) and err <= tol * scale):
+            fail(f"train card vs CPU: {key} differs by {err} (scale "
+                 f"{scale}, tol {tol})")
+    if int(got["step"]) != 1 or int(got["opt_state"][0]["count"]) != 1:
+        fail("train card vs CPU: step or count is not 1")
+    log("  one fp32 step, 1 s clip, B=1, card vs CPU (TF32 off, dropout 0): "
+        + ", ".join(f"{k} {v['max_abs_err']:.3e} (scale {v['scale']:.3e}, "
+                    f"tol {v['tol']:g} x scale)" for k, v in res.items())
+        + f"; {time.perf_counter() - t0:.1f} s")
+    out["card_vs_cpu"] = res
+
+    # ---- determinism, and remat's recompute reusing the dropout mask ----
+    def flat_params(s):
+        return ravel_tree(s["params"])[0]
+
+    runs = [step_fn(state0, frozen, legs["latents"],
+                    torch.Generator(device=dev).manual_seed(3))
+            for _ in range(2)]
+    if not (torch.equal(flat_params(runs[0][0]), flat_params(runs[1][0]))
+            and torch.equal(runs[0][1]["loss"], runs[1][1]["loss"])):
+        fail("train: two steps from one state and seed differ")
+    rcfg = DiTConfig(num_layers=REMAT_LAYERS, num_heads=12,
+                     compute_dtype="float32", remat_blocks=False)
+    small = on(dev, init_dit_train_state(rcfg, seed=2))
+    small_batch = {k: v[:2] for k, v in legs["latents"].items()}
+    mus = {}
+    for label, cfg_r in (("no remat", rcfg),
+                         ("remat nothing_saveable", rcfg.replace(
+                             remat_blocks=True,
+                             remat_policy="nothing_saveable")),
+                         ("remat dots", rcfg.replace(remat_blocks=True))):
+        _, fn, _ = build_ditto_train_step(cfg_r, ccfg, gcfg,
+                                          learning_rate=TRAIN_LR)
+        s1, _ = fn(small, frozen, small_batch,
+                   torch.Generator(device=dev).manual_seed(4))
+        mus[label] = s1["opt_state"][0]["mu"]
+    remat_err = {k: (v - mus["no remat"]).abs().max().item()
+                 for k, v in mus.items() if k != "no remat"}
+    scale = mus["no remat"].abs().max().item()
+    log(f"  determinism: two steps from one state and seed equal bit for "
+        f"bit; remat vs not, {REMAT_LAYERS} layers, fp32, dropout 0.1: mu "
+        f"max|err| "
+        f"{remat_err} (scale {scale:.3e})")
+    if not all(e <= 1e-6 * scale for e in remat_err.values()):
+        fail(f"train: remat changes the gradient: {remat_err}")
+    out["remat_mu_max_abs_err"] = remat_err
+
+    # ---- checkpoints: a full-width round trip, then Trainer.fit ----
+    tmp = ROOT / ".chip_smoke_tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    try:
+        path = str(tmp / "dit_state.npz")
+        (_, save_s) = sync_time(torch, save_checkpoint, path, final["audio"],
+                                {"epoch": 1})
+        size = os.path.getsize(path)
+        restored, load_s = sync_time(torch, restore_into,
+                                     on(dev, init_dit_train_state(dcfg, 9)),
+                                     path)
+        nxt = [step_fn(s, frozen, legs["latents"],
+                       torch.Generator(device=dev).manual_seed(6))[0]
+               for s in (final["audio"], restored)]
+        if not (torch.equal(flat_params(nxt[0]), flat_params(nxt[1]))
+                and torch.equal(nxt[0]["opt_state"][0]["nu"],
+                                nxt[1]["opt_state"][0]["nu"])
+                and int(nxt[1]["step"]) == TRAIN_TIMED + 2):
+            fail("train: a step from the restored state differs")
+        log(f"  checkpoint of the full train state: {size / 2**20:.1f} MiB "
+            f"npz, save {save_s:.1f} s, restore {load_s:.1f} s; the next "
+            "step from it equals the step from the saved state bit for bit")
+        out["checkpoint"] = {"bytes": size, "save_s": save_s,
+                             "restore_s": load_s}
+
+        fcfg = DiTConfig(num_layers=FIT_LAYERS, num_heads=12,
+                         remat_blocks=True, compute_dtype="bfloat16")
+        finit, fstep, feval = build_ditto_train_step(
+            fcfg, ccfg, gcfg, learning_rate=TRAIN_LR)
+        ckdir = str(tmp / "fit")
+
+        def fit(epochs):
+            return Trainer(fstep, feval).fit(
+                finit(on(dev, init_dit_train_state(fcfg, 3)["params"])),
+                frozen, lambda: [small_batch, small_batch],
+                lambda: [small_batch], epochs=epochs,
+                generator=torch.Generator().manual_seed(0), model_name="dit",
+                checkpoint_dir=ckdir, checkpoint_interval=1,
+                log_path=str(tmp / "fit.jsonl"), verbose=False)
+
+        _, hist = fit(2)
+        names = sorted(os.listdir(ckdir))
+        expect = sorted(f"dit_{tag}.{ext}" for tag in
+                        ("epoch_1", "epoch_2", "best", "final")
+                        for ext in ("npz", "json"))
+        if names != expect or len(hist["train"]["loss"]) != 2:
+            fail(f"Trainer.fit wrote {names}, history {hist}")
+        st3, hist3 = fit(3)
+        if len(hist3["train"]["loss"]) != 3 or not os.path.exists(
+                os.path.join(ckdir, "dit_epoch_3.npz")):
+            fail(f"Trainer.fit did not resume from epoch 2: {hist3}")
+        log(f"  Trainer.fit ({FIT_LAYERS} layer(s), 2 epochs x 2 steps, then "
+            f"resumed to 3): files {names}, train losses {hist3['train']['loss']}, "
+            f"validation {hist3['validation']['loss']}")
+        out["fit"] = {"files": names, "history": hist3}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["train"] = out
+    return train_step_launches(dcfg, ccfg, True)
+
+
+# --------------------------------------------------------------------------
 
 def main() -> None:
     if not (ROOT / "ditto_tts_tpu_torch" / "__init__.py").exists():
@@ -1306,10 +1658,15 @@ def main() -> None:
     log("== 9. DDIM (eta 0): serving, build_synthesize, card vs CPU")
     ddim_phase(torch, np, cfg, params, params_cpu, inputs, slp, rec)
 
-    # launches per 10 s request (fused_ncl: per forward of its two stages)
+    log("== 10. DiTTo training at full width (kernel A forward, recompute "
+        "and eval; B in the frozen encode)")
+    train_launches = train_phase(torch, np, params, params_cpu, card, rec)
+
+    # launches per 10 s request (fused_ncl: per forward of its two stages;
+    # train_step: per step of phase 10's audio leg)
     paths = {"default": DEFAULT_PATH, "fused_pallas": FUSED_PALLAS_PATH,
              "fused_ncl": FUSED_NCL_PATH, "slp": DEFAULT_PATH,
-             "ddim": DEFAULT_PATH}
+             "ddim": DEFAULT_PATH, "train_step": train_launches}
     sources = {
         "attention": "ditto_tts_tpu/ops/attention.py:95 pallas_attention "
                      "(#1) + :173 pallas_attention_packed (#2)",

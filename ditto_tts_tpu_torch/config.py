@@ -6,8 +6,8 @@ the JAX package. Field comments that name JAX lowerings (``conv_impl``,
 ``layout``, ``aa_impl``) describe the JAX package's switches; the port
 reads only the fields that change numbers (dtypes, geometry, sampler) and
 always takes its own kernels on the card. ``ByT5Config`` (the JAX
-``text/byt5.py`` dataclass) lives here too, so ``params.py`` reads no
-model module.
+``text/byt5.py`` dataclass) and ``GPT2Config`` (the JAX ``text/gpt2.py``
+one) live here too, so ``params.py`` reads no model module.
 
 Mirrors the reference's hyperparameter vocabulary (ref: src/utils/Config.py:3-151
 — BaseConfig/ConfigNAC/ConfigSLP/ConfigDiTTO static classes) as serializable
@@ -143,6 +143,19 @@ class ByT5Config:
 
 def byt5_small_config() -> ByT5Config:
     return ByT5Config()
+
+
+@dataclasses.dataclass(frozen=True)
+class GPT2Config:
+    """GPT2's geometry (the JAX ``text/gpt2.py`` dataclass): the DiTTo
+    training step cuts latents to ``n_positions`` frames."""
+
+    vocab_size: int = 50257
+    n_positions: int = 1024
+    n_embd: int = 768
+    n_layer: int = 12
+    n_head: int = 12
+    layer_norm_epsilon: float = 1e-5
 
 
 @dataclasses.dataclass(frozen=True)

@@ -27,7 +27,7 @@ def cosine_beta_schedule(timesteps: int, s: float = 0.008) -> np.ndarray:
 
 @dataclasses.dataclass(frozen=True)
 class NoiseSchedule:
-    betas: torch.Tensor            # [T] fp32, on the CPU
+    betas: torch.Tensor            # [T] fp32, on the CPU unless moved
     alphas: torch.Tensor
     alphas_cumprod: torch.Tensor
 
@@ -42,11 +42,18 @@ class NoiseSchedule:
     def num_steps(self) -> int:
         return self.betas.shape[0]
 
+    def to(self, device) -> "NoiseSchedule":
+        """The same tables on ``device`` (a training step indexes them
+        with t drawn there, without a host round trip)."""
+        return NoiseSchedule(**{f.name: getattr(self, f.name).to(device)
+                                for f in dataclasses.fields(self)})
+
 
 def q_sample(schedule: NoiseSchedule, x_start, t, noise, *,
              ref_compat: bool = False):
-    """x_t ~ q(x_t | x_0). t: [B] int; x_start / noise: [B, ...]."""
+    """x_t ~ q(x_t | x_0). t: [B] int on either device (it indexes the
+    tables where they lie); x_start / noise: [B, ...]."""
     coef = schedule.betas if ref_compat else schedule.alphas_cumprod
-    c = coef[t.cpu()].to(x_start.device)
+    c = coef[t.to(coef.device)].to(x_start.device)
     c = c.reshape((-1,) + (1,) * (x_start.dim() - 1))
     return torch.sqrt(c) * x_start + torch.sqrt(1.0 - c) * noise

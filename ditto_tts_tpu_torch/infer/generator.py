@@ -36,6 +36,7 @@ from ..config import ByT5Config, PipelineConfig, byt5_small_config
 from ..diffusion.sampler import ddim_sample, ddpm_sample, respaced_timesteps
 from ..diffusion.schedule import NoiseSchedule, q_sample
 from ..models import dit as dit_mod
+from ..models import nac as nac_mod
 from ..models import slp as slp_mod
 from ..models import vocoder as voc_mod
 from ..ops.mel import get_mel_spectrogram
@@ -46,9 +47,9 @@ from ..text import gpt2 as gpt2_mod
 def encode_prompt_latents(params: GeneratorParams, cfg: PipelineConfig,
                           audio, padding_mask=None):
     """Waveform -> channel-meaned latents [B, T <= max_token_length, H]."""
-    codes = codec_mod.codec_encode(params.codec, cfg.codec, audio,
-                                   padding_mask, bandwidth_kbps=1.5)
-    latents = params.embedding_head["weight"][codes]      # [B, nq, T, H]
+    latents, _ = nac_mod.audio_encoder(
+        {"embedding_head": params.embedding_head}, params.codec, cfg.codec,
+        audio, padding_mask)                               # [B, nq, T, H]
     return latents[:, :, :cfg.dit.max_token_length].mean(dim=1)
 
 
@@ -97,7 +98,11 @@ def _schedule(cfg: PipelineConfig, num_steps: Optional[int]):
 
 
 def _sample(params, cfg: PipelineConfig, schedule, taus, x_init, text_emb,
-            *, kind: str = "ddpm", generator=None, noise_seq=None):
+            *, kind: str = "ddpm", generator=None, noise_seq=None,
+            clip: bool = True):
+    """The sampler over the DiT; ``clip`` applies ``cfg.sampler.clip_denoised``
+    (the recorded form passes False: JAX's reference-parity path has no
+    clip)."""
     prep = dit_mod.prepare(params.dit, cfg.dit, text_emb, x_init.shape[1])
 
     def model_fn(x, t):
@@ -105,7 +110,7 @@ def _sample(params, cfg: PipelineConfig, schedule, taus, x_init, text_emb,
                                      prepared=prep)
 
     common = dict(noise_seq=noise_seq, generator=generator,
-                  clip_denoised=cfg.sampler.clip_denoised,
+                  clip_denoised=cfg.sampler.clip_denoised if clip else None,
                   prediction_type=cfg.dit.prediction_type)
     if kind == "ddim":
         return ddim_sample(model_fn, x_init, schedule, taus,
@@ -150,17 +155,17 @@ def _denoiser(cfg: PipelineConfig, *, num_steps: Optional[int],
 def build_stage_fns(cfg: PipelineConfig, *, num_steps: Optional[int] = None,
                     sampler_kind: Optional[str] = None,
                     cond_by_audio: bool = False,
-                    ref_compat: Optional[bool] = None):
+                    ref_compat: bool = False):
     """The chain split into stages, each a plain function for timing:
     encode, sampler, vq_indices, codec_decode, mel, vocoder, and the two
     halves of the serving path (refine_indices, indices_to_waveform).
     The sampler stage is DDPM whatever ``sampler_kind`` says, as the JAX
     stage is; it draws as ``refine_indices`` does, so under DDPM the
-    stages compose to the serving path bit for bit."""
+    stages compose to the serving path bit for bit. ``ref_compat`` defaults
+    to False, as in JAX: ``cfg.dit.ref_compat`` is not read here."""
     kind = cfg.sampler.kind if sampler_kind is None else sampler_kind
-    compat = cfg.dit.ref_compat if ref_compat is None else ref_compat
     opts = dict(num_steps=num_steps, cond_by_audio=cond_by_audio,
-                compat=compat)
+                compat=ref_compat)
     sampler = _denoiser(cfg, kind="ddpm", **opts)
     denoise = _denoiser(cfg, kind=kind, **opts)
 
@@ -168,7 +173,7 @@ def build_stage_fns(cfg: PipelineConfig, *, num_steps: Optional[int] = None,
         return encode_prompt_latents(params, cfg, audio, padding_mask)
 
     def vq_indices(params, refined):
-        return refined_to_indices(params, refined, ref_exact=compat)
+        return refined_to_indices(params, refined, ref_exact=ref_compat)
 
     def codec_decode(params, indices, output_length):
         return codec_mod.codec_decode(params.codec, cfg.codec, indices,
@@ -223,7 +228,8 @@ def build_synthesize_pipelined(cfg: PipelineConfig, *,
     stages = build_stage_fns(cfg, num_steps=num_steps,
                              sampler_kind=sampler_kind,
                              cond_by_audio=cond_by_audio,
-                             ref_compat=ref_compat)
+                             ref_compat=cfg.dit.ref_compat
+                             if ref_compat is None else ref_compat)
 
     @torch.inference_mode()
     def synthesize(params: GeneratorParams, audio, padding_mask, text_ids,
@@ -258,7 +264,8 @@ def build_synthesize_recorded(cfg: PipelineConfig, *,
     """fn(params, audio, padding_mask, text_ids, prompt_noise, init_noise,
     step_noise) with explicit noise (prompt_noise [B, T, H]; init_noise
     [B, T, H] or None when cond_by_audio; step_noise [K, B, T, H], the
-    sampler's draws, which DDIM scales by sigma).
+    sampler's draws, which DDIM scales by sigma). As in JAX, this form
+    ignores ``cfg.sampler.clip_denoised``.
 
     Returns (waveform, intermediates) with latents, noised, refined,
     indices, codec_wav and mel, or the waveform alone."""
@@ -279,7 +286,8 @@ def build_synthesize_recorded(cfg: PipelineConfig, *,
                           _on_dev(dev, prompt_noise), ref_compat=compat)
         x_init = noised if cond_by_audio else _on_dev(dev, init_noise)
         refined = _sample(params, cfg, schedule, taus, x_init, text_emb,
-                          kind=kind, noise_seq=_on_dev(dev, step_noise))
+                          kind=kind, noise_seq=_on_dev(dev, step_noise),
+                          clip=False)
         indices = refined_to_indices(params, refined, ref_exact=compat)
         out, inter = indices_to_waveform(params, cfg, indices, audio.shape[-1],
                                          return_intermediates=True)

@@ -175,6 +175,19 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
 
 
+def forbid_grad(name: str, *tensors) -> None:
+    """Kernels B, C and D have no backward (nor do their Pallas
+    counterparts: the codec is frozen and the vocoder is not trained). A
+    call that autograd would have to differentiate raises here rather than
+    return a result with no gradient; run such calls under
+    ``torch.no_grad()``."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward, and "
+                           "an input requires grad; call it under "
+                           "torch.no_grad()")
+
+
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
     dev = tensors[0].device
     for t in tensors:

@@ -8,24 +8,43 @@
   * DiTTO: timestep embedding + SiLU MLP, the shared GlobalAdaLN, N blocks
     and a long skip through proj_in/proj_out.
 
-``ref_compat`` (quirk #2) skips the self-attention ``out_proj``. Inference
-only: the train-time cross-attention dropout belongs to the training port.
+``ref_compat`` (quirk #2) skips the self-attention ``out_proj``.
 
 Per-request work is hoisted out of the denoising loop by ``prepare``: the
 block parameters are cast to the compute dtype once (the JAX
 ``prepare_blocks``), every layer's cross-attention K/V is projected from
 the text once (``prepare_cross_kv``) and the RoPE tables are built once.
-The block stack is a Python loop. Attention goes through
-``ops.attention.attention`` (kernel A on the card); the dense layers are
-``torch.matmul``.
+The block stack is a Python loop (``scan_blocks`` changes nothing).
+Attention goes through ``ops.attention.attention`` (kernel A on the card,
+differentiable); the dense layers are ``torch.matmul``.
+
+Training (``train/steps.py``) calls ``ditto_forward`` with a
+``torch.Generator`` in place of JAX's ``dropout_key``:
+  * cross-attention dropout of rate ``cross_attn_dropout``, inverted (kept
+    values scaled by 1/(1-rate)), on the projected cross-attention output
+    (``attn_dropout_mode="output"``) or on the matmul-softmax probabilities
+    (``"probs"``, forced by ``ref_compat``; that path computes the
+    attention inline, not on kernel A, as JAX does). JAX's RBG mask cannot
+    be replayed; any iid keep mask is the same regularizer. Every block's
+    mask is drawn before the block runs, so a rematerialized block reuses
+    it (checkpoint's RNG replay covers only the default generators);
+  * ``remat_blocks``: each block under ``torch.utils.checkpoint`` (not
+    reentrant). ``remat_policy="nothing_saveable"`` recomputes all of it,
+    ``"dots_with_no_batch_dims_saveable"`` saves the weight GEMMs' outputs
+    (``aten.mm`` / ``addmm``) and recomputes the rest, attention included.
+With gradients, ``prepare`` runs inside every forward, so its bf16 casts
+and cross K/V stay in the autograd graph of that step's parameters.
 """
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from ..config import DiTConfig
 from ..nn.core import dense, embed, layer_norm
@@ -96,8 +115,33 @@ def prepare(params, cfg: DiTConfig, text_emb, seq_len: int):
                                 device=text_emb.device)}
 
 
-def dit_block(params, cfg: DiTConfig, x, rope_cs: Tuple, cross_kv: Tuple):
-    """One DiT block. rope_cs = (cos, sin); cross_kv = this layer's (K, V)."""
+def _dropout_mode(cfg: DiTConfig) -> str:
+    return "probs" if cfg.ref_compat else cfg.attn_dropout_mode
+
+
+def _inverted(x, keep, rate: float):
+    """The JAX ``_rbg_dropout`` given its keep mask: kept values scaled by
+    1/(1-rate), the rest 0."""
+    return torch.where(keep, x * (1.0 / (1.0 - rate)), torch.zeros((),
+                       dtype=x.dtype, device=x.device))
+
+
+def draw_keep_masks(cfg: DiTConfig, generator: torch.Generator, b: int,
+                    s: int, st: int, device) -> List:
+    """One cross-attention dropout keep mask per block (True with
+    probability 1 - rate): [B, S, H] for ``"output"`` dropout, [B, nh, S,
+    St] for ``"probs"``."""
+    shape = ((b, s, cfg.hidden_dim) if _dropout_mode(cfg) == "output"
+             else (b, cfg.num_heads, s, st))
+    return [torch.rand(shape, generator=generator, device=device)
+            >= cfg.cross_attn_dropout for _ in range(cfg.num_layers)]
+
+
+def dit_block(params, cfg: DiTConfig, x, rope_cs: Tuple, cross_kv: Tuple,
+              keep=None):
+    """One DiT block. rope_cs = (cos, sin); cross_kv = this layer's (K, V);
+    ``keep`` this layer's cross-attention dropout keep mask
+    (``draw_keep_masks``), None for no dropout."""
     nh = cfg.num_heads
 
     # self-attention with RoPE
@@ -124,8 +168,18 @@ def dit_block(params, cfg: DiTConfig, x, rope_cs: Tuple, cross_kv: Tuple):
     bb = params["cross_attn"]["in_proj_bias"]
     q = _split_heads(dense({"weight": w[:h], "bias": bb[:h]}, xn), nh)
     k, v = cross_kv
-    cross = dense(params["cross_attn"]["out_proj"],
-                  _merge_heads(attention(q, k, v)))
+    rate = cfg.cross_attn_dropout
+    if keep is not None and _dropout_mode(cfg) == "probs":
+        # torch MHA semantics, computed inline as JAX does (not kernel A)
+        scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
+            / math.sqrt(q.shape[-1])
+        p = _inverted(torch.softmax(scores, dim=-1), keep, rate)
+        heads = torch.matmul(p.to(v.dtype).float(), v.float()).to(x.dtype)
+    else:
+        heads = attention(q, k, v)
+    cross = dense(params["cross_attn"]["out_proj"], _merge_heads(heads))
+    if keep is not None and _dropout_mode(cfg) == "output":
+        cross = _inverted(cross, keep, rate)
     x = cross + residual
 
     # gated MLP
@@ -136,10 +190,40 @@ def dit_block(params, cfg: DiTConfig, x, rope_cs: Tuple, cross_kv: Tuple):
     return dense(params["mlp_fc2"], up * gate) + residual
 
 
+_WEIGHT_GEMMS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_weight_gemms(ctx, op, *args, **kwargs):
+    """JAX's ``dots_with_no_batch_dims_saveable``: the outputs of the weight
+    GEMMs ([B, S, H] x W^T folds to one ``mm``) are saved; everything
+    else, the batched attention products included, is recomputed."""
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _WEIGHT_GEMMS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+REMAT_POLICIES = ("nothing_saveable", "dots_with_no_batch_dims_saveable")
+
+
+def _remat(cfg: DiTConfig):
+    """dit_block under ``torch.utils.checkpoint`` with ``cfg.remat_policy``."""
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
+                         f"expected one of {REMAT_POLICIES}")
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat_policy == "dots_with_no_batch_dims_saveable":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_weight_gemms)
+    return functools.partial(ckpt.checkpoint, dit_block, **kw)
+
+
 def ditto_forward(params, cfg: DiTConfig, x, text_emb, t, *,
-                  prepared: Optional[Dict] = None):
+                  prepared: Optional[Dict] = None,
+                  generator: Optional[torch.Generator] = None):
     """Noise prediction. x: [B, S, H] noisy latents; text_emb: [B, St, Xd];
-    t: [B] int. ``prepared`` is ``prepare(...)`` for this request."""
+    t: [B] int. ``prepared`` is ``prepare(...)`` for this request;
+    ``generator`` (on x's device) draws the cross-attention dropout masks,
+    None for none (the JAX ``dropout_key``). ``cfg.remat_blocks``
+    rematerializes each block where autograd records the forward."""
     if prepared is None:
         prepared = prepare(params, cfg, text_emb, x.shape[1])
     temb = embed(params["t_embedding"], t)
@@ -154,8 +238,16 @@ def ditto_forward(params, cfg: DiTConfig, x, text_emb, t, *,
     # statistics in layer_norm and softmax
     cdt = getattr(torch, cfg.compute_dtype)
     x = x.to(cdt)
-    for blk, ckv in zip(prepared["blocks"], prepared["cross_kv"]):
-        x = dit_block(blk, cfg, x, prepared["rope"], ckv)
+    keeps = [None] * cfg.num_layers
+    if generator is not None and cfg.cross_attn_dropout > 0.0:
+        keeps = draw_keep_masks(cfg, generator, x.shape[0], x.shape[1],
+                                text_emb.shape[1], x.device)
+    block = dit_block
+    if cfg.remat_blocks and torch.is_grad_enabled():
+        block = _remat(cfg)
+    for blk, ckv, keep in zip(prepared["blocks"], prepared["cross_kv"],
+                              keeps):
+        x = block(blk, cfg, x, prepared["rope"], ckv, keep)
 
     x = dense(params["proj_out"], x.to(x_skip.dtype))
     return x_skip + x

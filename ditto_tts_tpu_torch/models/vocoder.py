@@ -29,8 +29,10 @@ stages of the nlc layout are "NLC" stages. W is the stage's width.
 (``ops.act_conv``); "raises" is the JAX package's NotImplementedError. As
 in the JAX package, the fused kernels (C and D, as their Pallas
 counterparts) take the pi-periodic polynomial sin^2 (``ops.snake.sin2``,
-<= 5e-7 abs from sin^2), the polyphase, composed and banded-GEMM forms
-``torch.sin``.
+within ~5e-7 of sin^2 for |alpha x| <~ 1e3, more beyond), and so do the
+polyphase activations that ``fused_conv`` runs under ``layout="nlc"`` (the
+JAX ``fast`` flag: NLC stages, NCL-hybrid stages and act_post); every
+other polyphase, composed and banded-GEMM form takes ``torch.sin``.
 """
 
 from __future__ import annotations
@@ -61,14 +63,16 @@ def _beta(act_params, cfg: VocoderConfig):
     return act_params["beta"] if cfg.activation == "snakebeta" else None
 
 
-def _snake_fn(act_params, cfg: VocoderConfig):
+def _snake_fn(act_params, cfg: VocoderConfig, fast: bool):
     alpha, beta = act_params["alpha"], _beta(act_params, cfg)
-    return lambda v: snake_beta(v, alpha, beta, logscale=cfg.snake_logscale)
+    return lambda v: snake_beta(v, alpha, beta, logscale=cfg.snake_logscale,
+                                fast=fast)
 
 
-def _act(x, act_params, cfg: VocoderConfig, impl: str):
-    """A standalone activation where the JAX package carries [B, C, T]."""
-    fn = _snake_fn(act_params, cfg)
+def _act(x, act_params, cfg: VocoderConfig, impl: str, fast: bool = False):
+    """A standalone activation where the JAX package carries [B, C, T];
+    ``fast``: sin^2 by ``sin2`` (the JAX ``_act(fast=...)``)."""
+    fn = _snake_fn(act_params, cfg, fast)
     if not cfg.use_anti_aliasing:
         return fn(x)
     if impl == "fused_pallas":
@@ -82,11 +86,13 @@ def _act(x, act_params, cfg: VocoderConfig, impl: str):
 
 def _act_nlc(x, act_params, cfg: VocoderConfig, impl: str):
     """A standalone activation of a channels-last stage (the JAX
-    ``_act_nlc``), on the [B, C, T] carry."""
-    fn = _snake_fn(act_params, cfg)
+    ``_act_nlc``), on the [B, C, T] carry; under ``fused_conv`` the
+    polyphase form with ``sin2``."""
+    fast = impl == "fused_conv"
+    fn = _snake_fn(act_params, cfg, fast)
     if not cfg.use_anti_aliasing:
         return fn(x)
-    if impl == "fused_conv":
+    if fast:
         impl = "polyphase"
     if impl == "fused_pallas":
         if x.shape[1] >= NARROW:
@@ -165,9 +171,12 @@ def _stage_block(cfg: VocoderConfig, impl: str, kind: str, width: int, cdt):
         act_impl = impl
         if impl == "fused_conv" or (kind == "hybrid" and impl == "fused_ncl"):
             act_impl = "polyphase"
+        # the JAX _amp_block_ncl sets fast under fused_conv; the "ncl"
+        # layout maps fused_conv to the exact polyphase form
+        fast = kind == "hybrid" and impl == "fused_conv"
 
         def act(v, a):
-            return _act(v, a, cfg, act_impl)
+            return _act(v, a, cfg, act_impl, fast)
     return lambda p, x, d: _amp_block(p, x, d, cdt, act)
 
 
@@ -208,6 +217,6 @@ def bigvgan_forward(params, cfg: VocoderConfig, mel, *, fused: bool = False,
     else:
         x = _act(x, params["act_post"], cfg,
                  "polyphase" if kind == "hybrid" or impl == "fused_conv"
-                 else impl)
+                 else impl, fast=kind == "hybrid" and impl == "fused_conv")
     x = _conv_same(params["conv_post"], x, cdt=cdt)
     return torch.clamp(x.float(), -1.0, 1.0)

@@ -12,7 +12,8 @@ the single cast to x's type. ``aa_snake_conv1d_ncl`` is the counterpart of
 the time-minor twin ``aa_snake_conv1d_ncl``: the same function plus an
 optional residual, added in fp32 before that cast. A CPU tensor takes
 ``aa_snake_conv1d_plain``; a CUDA tensor launches kernel C
-(``csrc/act_conv.cu``) or raises.
+(``csrc/act_conv.cu``) or raises; with no backward, it raises too on an
+input that requires grad under grad mode (``kernels.forbid_grad``).
 
 Like the Pallas wrappers, a sequence shorter than the kernel's two-block
 halo runs the unfused form (polyphase activation, zero pad, conv, then the
@@ -103,6 +104,7 @@ def aa_snake_conv1d_cuda(x, a, inv_b, weight, bias=None, *,
     out_dtype = out_dtype or x.dtype
     tensors = tuple(v for v in (x, a, inv_b, weight, bias, residual)
                     if v is not None)
+    kernels.forbid_grad("act_conv", *tensors)
     kernels.require_cuda("act_conv", *tensors)
     if x.dtype not in kernels.DTYPE_CODES or weight.dtype != x.dtype or \
             out_dtype not in kernels.DTYPE_CODES:

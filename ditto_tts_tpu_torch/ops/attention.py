@@ -10,6 +10,14 @@ switch: on the card every call, self or cross, at every length, is the
 kernel. Attention that JAX never sends to Pallas (heads wider than 128, an
 additive bias: the SLP decoder and ByT5) calls ``attention_plain``
 directly, on any device.
+
+Training differentiates through ``attention``: where grad mode is on and an
+operand requires grad, it runs ``_Attention``, an ``autograd.Function``
+whose forward is the same call (kernel A on the card) and whose backward
+is ``attention_backward``, the JAX ``_pallas_attn_bwd`` math in stock ops
+(fp32 recompute of the probabilities, then the softmax-attention
+gradient), as the JAX ``custom_vjp`` pairs the Pallas forward with an
+``einsum`` backward.
 """
 
 from __future__ import annotations
@@ -23,6 +31,12 @@ import torch
 from .. import kernels
 
 
+def _acc_dtype(q):
+    """fp32 sums for bf16 and fp32 operands (fp64 ones keep fp64, for
+    gradient checks)."""
+    return torch.promote_types(q.dtype, torch.float32)
+
+
 def attention_plain(q, k, v, *, causal: bool = False,
                     sm_scale: Optional[float] = None,
                     kv_len: Optional[int] = None, bias=None):
@@ -34,7 +48,8 @@ def attention_plain(q, k, v, *, causal: bool = False,
     bias is always this math, as in JAX (``ops/attention.py:300``)."""
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    acc = _acc_dtype(q)
+    scores = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
     if bias is not None:
         scores = scores + bias
     sq, sk = scores.shape[-2:]
@@ -48,7 +63,7 @@ def attention_plain(q, k, v, *, causal: bool = False,
     if mask is not None:
         scores = scores.masked_fill(~mask, float("-inf"))
     p = torch.softmax(scores, dim=-1).to(v.dtype)
-    return torch.matmul(p.float(), v.float()).to(q.dtype)
+    return torch.matmul(p.to(acc), v.to(acc)).to(q.dtype)
 
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)] \
@@ -102,13 +117,71 @@ def attention_cuda(q, k, v, *, causal: bool = False,
     return o
 
 
-def attention(q, k, v, *, causal: bool = False,
-              sm_scale: Optional[float] = None,
-              kv_len: Optional[int] = None):
-    """Multi-head attention over [B, H, S, D]: the plain version for a CPU
-    tensor, kernel A for a CUDA tensor."""
+def _forward(q, k, v, causal, sm_scale, kv_len):
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, sm_scale=sm_scale,
                                kv_len=kv_len)
     return attention_cuda(q, k, v, causal=causal, sm_scale=sm_scale,
                           kv_len=kv_len)
+
+
+def attention_backward(q, k, v, g, *, causal: bool = False,
+                       sm_scale: Optional[float] = None,
+                       kv_len: Optional[int] = None):
+    """(dq, dk, dv) of softmax(Q K^T * scale) V for the output gradient g
+    (the JAX ``ops/attention.py:_pallas_attn_bwd``): fp32 scores, masked
+    keys (causal, index >= ``kv_len``) at -1e30, P by softmax, dV = P^T g,
+    dP = g V^T, dS = P (dP - rowsum(dP P)), dQ = dS K scale, dK = dS^T Q
+    scale, each cast back to its operand's type."""
+    d = q.shape[-1]
+    scale = 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
+    acc = _acc_dtype(q)
+    qf, kf, vf, gf = (t.to(acc) for t in (q, k, v, g))
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    sq, sk = s.shape[-2:]
+    mask = None
+    if kv_len is not None and kv_len < sk:
+        mask = torch.arange(sk, device=q.device)[None, :] < kv_len
+    if causal:
+        cm = (torch.arange(sk, device=q.device)[None, :]
+              <= torch.arange(sq, device=q.device)[:, None])
+        mask = cm if mask is None else mask & cm
+    if mask is not None:
+        s = s.masked_fill(~mask, -1e30)
+    p = torch.softmax(s, dim=-1)
+    dv = torch.matmul(p.transpose(-1, -2), gf)
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _Attention(torch.autograd.Function):
+    """Kernel A (the plain version on the CPU) forward, the JAX custom-VJP
+    backward (``attention_backward``). Saves q, k and v, not the
+    probabilities: the backward recomputes them, as JAX's does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, kv_len):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, sm_scale=sm_scale, kv_len=kv_len)
+        return _forward(q, k, v, causal, sm_scale, kv_len)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (*attention_backward(q, k, v, g, **ctx.opts), None, None,
+                None)
+
+
+def attention(q, k, v, *, causal: bool = False,
+              sm_scale: Optional[float] = None,
+              kv_len: Optional[int] = None):
+    """Multi-head attention over [B, H, S, D]: the plain version for a CPU
+    tensor, kernel A for a CUDA tensor; differentiable (``_Attention``)
+    where grad mode is on and an operand requires grad."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Attention.apply(q, k, v, causal, sm_scale, kv_len)
+    return _forward(q, k, v, causal, sm_scale, kv_len)

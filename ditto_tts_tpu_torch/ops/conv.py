@@ -5,7 +5,9 @@ codec and of BigVGAN. A CPU tensor takes ``conv1d_plain`` (an explicit
 K-tap sum of fp32 products); a CUDA tensor launches kernel B
 (``csrc/conv1d.cu``, the port of the Pallas ``conv1d_nlc_pallas`` and
 ``conv1d_ncl_pallas``: a tap-sum implicit GEMM on the tensor cores in bf16,
-exact fp32 on the CUDA cores in fp32) or raises.
+exact fp32 on the CUDA cores in fp32) or raises. The kernel has no backward:
+an input that requires grad under grad mode raises too
+(``kernels.forbid_grad``).
 
 Dtype contract (the JAX package's ``nn/conv.py``): both operands are cast
 to ``compute_dtype`` (default: x's type), products sum in fp32, the fp32
@@ -49,6 +51,7 @@ def conv1d_cuda(x, weight, bias=None, *, dilation: int = 1):
     in x's type. bf16 runs the tensor-core kernel (after a reorder of the
     weights to [K, O, C] inside the same call), fp32 the CUDA-core one."""
     tensors = (x, weight) if bias is None else (x, weight, bias)
+    kernels.forbid_grad("conv1d", *tensors)
     kernels.require_cuda("conv1d", *tensors)
     if x.dtype not in kernels.DTYPE_CODES or weight.dtype != x.dtype:
         raise TypeError(f"conv1d: fp32 or bf16 x and w of one type, got "

@@ -9,11 +9,14 @@ kaiser-sinc up, activation, 2x anti-aliased down) without the 2x-rate
 signal: two 6-tap upsample phases, the activation on each, two 6-tap
 decimation phases, with BigVGAN's replicate edges. It runs in fp32 and
 returns x's type; the vocoder uses it for the activations outside the
-fused act->conv widths and for act_post. These forms take ``torch.sin``,
-as the JAX ones take ``jnp.sin``. The fused kernels C and D, like the
-Pallas kernels they replace, take ``sin2``: sin^2 by a pi-periodic range
-reduction and an odd polynomial (the JAX ``ops/fastmath.py``), branch-free
-and a fraction of ``sinf``'s instructions on the card.
+fused act->conv widths and for act_post. ``snake_beta`` takes ``torch.sin``
+unless asked for ``sin2`` (``fast``), as the JAX one takes ``jnp.sin``
+unless ``fast``; the JAX vocoder sets ``fast`` for the standalone
+activations of its default ``aa_impl="fused_conv"`` under
+``layout="nlc"``. The fused kernels C and D, like the Pallas kernels they
+replace, always take ``sin2``: sin^2 by a pi-periodic range reduction and
+an odd polynomial (the JAX ``ops/fastmath.py``), branch-free and a
+fraction of ``sinf``'s instructions on the card.
 
 The vocoder's other ``aa_impl`` settings take the other two forms:
 ``anti_aliased_activation`` (composed: 2x-rate upsample, activation, 2x
@@ -72,13 +75,19 @@ def snake_coeffs(alpha, beta=None, *, logscale: bool = True):
     return a, 1.0 / (b + _EPS)
 
 
-def snake_beta(x, alpha, beta=None, *, logscale: bool = True):
+def snake_beta(x, alpha, beta=None, *, logscale: bool = True,
+               fast: bool = False):
     """x [B, C, T]; alpha, beta [C] (beta None: plain Snake). fp32 math,
-    result in x's type."""
+    result in x's type. ``fast`` takes ``sin2`` for sin^2 (the JAX
+    ``snake_beta(fast=True)``), else ``torch.sin``."""
     a, inv_b = snake_coeffs(alpha, beta, logscale=logscale)
     xf = x.float()
-    s = torch.sin(a[:, None] * xf)
-    return (xf + inv_b[:, None] * (s * s)).to(x.dtype)
+    if fast:
+        s2 = sin2(a[:, None] * xf)
+    else:
+        s = torch.sin(a[:, None] * xf)
+        s2 = s * s
+    return (xf + inv_b[:, None] * s2).to(x.dtype)
 
 
 def polyphase_anti_aliased_activation(x, act_fn):

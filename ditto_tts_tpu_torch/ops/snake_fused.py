@@ -19,8 +19,9 @@ Pallas kernels' pi-periodic polynomial (``ops.snake.sin2``), as kernel D
 computes it.
 
 A CPU tensor takes ``fused_snake_plain``; a CUDA tensor launches kernel D
-(``csrc/snake.cu``) or raises. Both layouts go through one kernel on a
-[B, C, T] view with the tensor's own strides.
+(``csrc/snake.cu``) or raises (also, having no backward, on an input that
+requires grad under grad mode: ``kernels.forbid_grad``). Both layouts go
+through one kernel on a [B, C, T] view with the tensor's own strides.
 """
 
 from __future__ import annotations
@@ -97,6 +98,7 @@ def fused_snake_cuda(x, a, inv_b, *, up_in_x_dtype: bool):
     """Kernel D; the operands of ``fused_snake_plain`` on one CUDA device.
     x may have any strides; y has x's strides when x is dense (a [B, T, C]
     tensor seen as [B, C, T] stays channels-minor)."""
+    kernels.forbid_grad("snake", x, a, inv_b)
     kernels.require_cuda("snake", x, a, inv_b)
     if x.dtype not in kernels.DTYPE_CODES or x.dim() != 3:
         raise TypeError(f"snake: fp32 or bf16 [B, C, T] x, got {x.dtype} "

@@ -9,6 +9,14 @@ shapes and init distributions as the JAX ``init_*`` functions from a numpy
 seed, for runs that have no JAX (the card's machine); ``init_slp_params``
 does the same for the SLP chain's ByT5 and SLP trees, in a draw of its own
 so the six serving fields keep their values.
+
+The DiTTo train state is the JAX one, ``{"params", "opt_state", "step"}``
+with the flat AdamW state ``[{"count", "mu", "nu"}]`` (optax's empty states
+hold no arrays): ``new_train_state`` wraps parameters in one,
+``init_dit_train_state`` draws one from a numpy seed,
+``from_jax_train_state`` and ``train_state_to_numpy`` cross it.
+``ravel_tree`` is JAX's ``ravel_pytree`` order (sorted dict keys, list
+indices), the layout of the flat ``mu`` and ``nu``.
 """
 
 from __future__ import annotations
@@ -47,6 +55,36 @@ def tree_leaves(tree, prefix: str = ""):
             yield from tree_leaves(v, f"{prefix}/{i}")
     else:
         yield prefix, tree
+
+
+def tree_unflatten(template, leaves):
+    """``template``'s structure with its leaves replaced by ``leaves``,
+    which are in ``tree_leaves`` order."""
+    by_path = {p: v for (p, _), v in zip(tree_leaves(template), leaves)}
+
+    def build(node, prefix):
+        if isinstance(node, Mapping):
+            return {k: build(node[k], f"{prefix}/{k}") for k in node}
+        if isinstance(node, (list, tuple)):
+            return [build(v, f"{prefix}/{i}") for i, v in enumerate(node)]
+        return by_path[prefix]
+
+    return build(template, "")
+
+
+def ravel_tree(tree):
+    """(flat, unravel): the leaves concatenated in ``tree_leaves`` order
+    (JAX ``ravel_pytree``'s: sorted dict keys, list indices) and the
+    inverse, which returns views of a flat vector in the tree's structure."""
+    leaves = [t for _, t in tree_leaves(tree)]
+    shapes = [t.shape for t in leaves]
+    flat = torch.cat([t.reshape(-1) for t in leaves])
+
+    def unravel(vec):
+        parts = torch.split(vec, [t.numel() for t in leaves])
+        return tree_unflatten(tree, [v.view(s) for v, s in zip(parts, shapes)])
+
+    return flat, unravel
 
 
 @dataclasses.dataclass
@@ -315,3 +353,64 @@ def init_slp_params(cfg: PipelineConfig, seed: int = 1,
     spec = {"byt5": byt5_spec(byt5_cfg or byt5_small_config()),
             "slp": slp_spec(cfg.slp, cfg.codec.codebook_size)}
     return tree_map(torch.from_numpy, fill_spec(spec, seed))
+
+
+# ---------------------------------------------------------------------------
+# the DiTTo train state
+# ---------------------------------------------------------------------------
+
+def zero_adamw_state(params, flat: bool = True):
+    """optax AdamW's initial state in JAX's checkpoint layout: count 0
+    (int32) and zero moments, one flat vector each (``flat``, the JAX
+    ``make_adamw(flat=True)``) or trees shaped as ``params``."""
+    device = next(tree_leaves(params))[1].device
+    if flat:
+        vec, _ = ravel_tree(params)
+        mu, nu = torch.zeros_like(vec), torch.zeros_like(vec)
+    else:
+        mu = tree_map(torch.zeros_like, params)
+        nu = tree_map(torch.zeros_like, params)
+    return [{"count": torch.zeros((), dtype=torch.int32, device=device),
+             "mu": mu, "nu": nu}]
+
+
+def new_train_state(params, flat_opt: bool = True) -> Dict:
+    """``{"params", "opt_state", "step"}`` for fresh parameters: a zero
+    AdamW state and step 0 (int32), on the parameters' device (the JAX
+    ``build_ditto_train_step``'s ``init_state``)."""
+    device = next(tree_leaves(params))[1].device
+    return {"params": params, "opt_state": zero_adamw_state(params, flat_opt),
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def init_dit_train_state(cfg: DiTConfig, seed: int = 0,
+                         flat_opt: bool = True) -> Dict:
+    """A fresh CPU fp32 DiTTo train state: the JAX ``init_ditto`` tree's
+    structure, shapes and distributions from a numpy seed."""
+    return new_train_state(
+        tree_map(torch.from_numpy, fill_spec(_dit_spec(cfg), seed)), flat_opt)
+
+
+def from_jax_train_state(tree: Mapping[str, Any]) -> Dict:
+    """A JAX ``{"params", "opt_state", "step"}`` train state of numpy
+    arrays (optax's named tuples, or the dicts and lists a loaded
+    checkpoint holds) as the port's CPU tensors, in the layout its
+    checkpoints flatten to JAX's keys."""
+    def conv(node):
+        if hasattr(node, "_fields"):            # optax's named tuples
+            return {f: conv(getattr(node, f)) for f in node._fields}
+        if isinstance(node, Mapping):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            # optax's EmptyState entries hold no arrays and no keys
+            return [conv(v) for v in node
+                    if not (hasattr(v, "_fields") and not v._fields)]
+        return torch.from_numpy(np.array(node, copy=True))
+
+    return {k: conv(tree[k]) for k in ("params", "opt_state", "step")}
+
+
+def train_state_to_numpy(state: Mapping[str, Any]) -> Dict:
+    """The port's train state as nested dicts / lists of host numpy arrays,
+    every dtype kept (count and step int32)."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), dict(state))

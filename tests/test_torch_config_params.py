@@ -239,6 +239,22 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
             f"{path.name} imports {mod}"
 
 
+def test_import_check_covers_the_training_modules():
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    assert {"ditto_tts_tpu_torch/models/nac.py",
+            "ditto_tts_tpu_torch/train/steps.py",
+            "ditto_tts_tpu_torch/train/checkpoint.py",
+            "ditto_tts_tpu_torch/train/trainer.py"} <= names
+
+
+def test_gpt2_config_equals_jax():
+    """The port's GPT2Config (the train step reads n_positions) has the
+    JAX dataclass's fields and defaults."""
+    from ditto_tts_tpu.text.gpt2 import GPT2Config
+    assert dataclasses.asdict(tconfig.GPT2Config()) == \
+        dataclasses.asdict(GPT2Config())
+
+
 def test_entry_points_need_cuda_unless_cpu_is_asked():
     from ditto_tts_tpu_torch import resolve_device
     from ditto_tts_tpu_torch.infer.generator import (

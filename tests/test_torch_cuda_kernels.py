@@ -15,7 +15,10 @@ kernels A, B and C run on the tensor cores in tiles of 64 keys / 16 query
 rows a warp and 32 input channels x 16..192 output channels x 128..256
 time steps (C: a slab of every input channel, activated in runs of 16
 rows), and kernel D in runs of 16 samples a thread, so the edge cases sit
-on either side of those tiles and runs.
+on either side of those tiles and runs. Kernel A's gradient (its
+``autograd.Function``: the kernel forward, the stock-op backward) is held
+against autograd through the plain version at the same tile edges; B, C
+and D, which have no backward, refuse an input that requires grad.
 """
 
 import pytest
@@ -24,9 +27,10 @@ import torch
 from ditto_tts_tpu_torch import kernels
 from ditto_tts_tpu_torch.ops.act_conv import (aa_snake_conv1d_cuda,
                                               aa_snake_conv1d_plain)
-from ditto_tts_tpu_torch.ops.attention import attention_cuda, attention_plain
-from ditto_tts_tpu_torch.ops.conv import (conv1d_cuda, conv1d_ncl_batched,
-                                          conv1d_plain)
+from ditto_tts_tpu_torch.ops.attention import (attention, attention_cuda,
+                                              attention_plain)
+from ditto_tts_tpu_torch.ops.conv import (conv1d, conv1d_cuda,
+                                          conv1d_ncl_batched, conv1d_plain)
 from ditto_tts_tpu_torch.ops.snake_fused import (fused_snake_cuda,
                                                  fused_snake_plain)
 
@@ -318,3 +322,49 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         aa_snake_conv1d_cuda(x, torch.ones(4, device="cuda"),
                              torch.ones(4, device="cuda"), _rn(gen, 4, 4, 3),
                              residual=_rn(gen, 1, 4, 39))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal,kv_len", [(False, None), (True, None),
+                                           (False, -3)])
+@pytest.mark.parametrize("sq,sk", [(15, 63), (16, 64), (17, 65), (63, 1),
+                                   (65, 129), (64, 750)])
+def test_attention_gradient_tile_edges(gen, dtype, sq, sk, causal, kv_len):
+    """dq, dk and dv through kernel A's Function against autograd through
+    ``attention_plain``, queries and keys on either side of the 16-row and
+    64-key tiles (BQ, BK of csrc/attention.cu); one launch, in the forward
+    only."""
+    kvl = None if kv_len is None else max(1, sk + kv_len)
+    ops = [_rn(gen, 1, 2, n, 64, dtype=dtype) for n in (sq, sk, sk)]
+    g = _rn(gen, 1, 2, sq, 64, dtype=dtype)
+    a = [t.clone().requires_grad_() for t in ops]
+    before = kernels.launches["attention"]
+    got = torch.autograd.grad(attention(*a, causal=causal, kv_len=kvl), a, g)
+    assert kernels.launches["attention"] == before + 1
+    p = [t.clone().requires_grad_() for t in ops]
+    want = torch.autograd.grad(
+        attention_plain(*p, causal=causal, kv_len=kvl), p, g)
+    for x, y in zip(got, want):
+        assert x.dtype == dtype
+        _check(x, y, dtype)
+
+
+def test_kernels_without_backward_refuse_grad(gen):
+    """B, C and D raise on an input that requires grad under grad mode,
+    launch nothing, and run under torch.no_grad()."""
+    x = _rn(gen, 1, 4, 64).requires_grad_()
+    w = _rn(gen, 4, 4, 3)
+    ones = torch.ones(4, device="cuda")
+    before = dict(kernels.launches)
+    for call in (lambda: conv1d_cuda(x, w),
+                 lambda: conv1d(x, w),
+                 lambda: conv1d_cuda(x.detach(), w.requires_grad_()),
+                 lambda: aa_snake_conv1d_cuda(x, ones, ones, w.detach()),
+                 lambda: fused_snake_cuda(x, ones, ones,
+                                          up_in_x_dtype=False)):
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+    assert kernels.launches == before
+    with torch.no_grad():
+        _check(conv1d_cuda(x, w), conv1d_plain(x, w), torch.float32)
+    assert kernels.launches["conv1d"] == before["conv1d"] + 1
