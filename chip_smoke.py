@@ -68,13 +68,14 @@ Phases (any failure exits non-zero and prints no result line):
  10. DiTTo training at full width (build_ditto_train_step: the 12-layer
      768-wide DiT with bf16 blocks, remat, output-mode cross-attention
      dropout 0.1, flat AdamW at lr 1e-4; B=8 of the 10 s bucket, 1024 GPT2
-     ids cut to 750): an audio leg (the fp32 frozen encode through kernel
-     B) and a latent leg, each a warm-up and 5 timed synchronized steps
+     ids cut to 750): a latent leg, then an audio leg (the fp32 frozen
+     encode through kernel B), each a warm-up and 5 timed synchronized steps
      (step s, audio-s/s, peak memory, finite losses) with exact launches
      per step (A 48: 24 in the forward, 24 in the remat recompute, none in
      the backward; B 14 in the audio leg's encode; C, D 0), A 24 in a
-     step without remat and in eval_fn; kernel A's gradient against
-     autograd through its plain version (self and cross at B8 H12 S750,
+     step without remat and in eval_fn; kernel A's output and gradient
+     against its plain version and autograd through it (self and cross at
+     B8 H12 S750,
      causal at S1024, bf16 and fp32); one fp32 step card vs CPU (1 s clip,
      B=1, dropout 0, the same t and noise: loss, mu, nu, params); two
      steps from one state and seed bitwise equal; remat against none at 2
@@ -1263,21 +1264,28 @@ def train_step_launches(dcfg, codec_cfg, audio: bool, *, remat=True) -> dict:
 
 def grad_check_a(torch, checks, label, shape_q, shape_k, causal, dtype, dev,
                  seed):
-    """dq, dk, dv through kernel A's Function (kernel forward, stock-op
-    backward) against autograd through attention_plain, on the card."""
+    """Kernel A's forward output, and dq, dk, dv through its Function
+    (kernel forward, stock-op backward), against attention_plain and
+    autograd through it, on the card."""
     from ditto_tts_tpu_torch.ops.attention import attention, attention_plain
     gen = torch.Generator(device=dev).manual_seed(seed)
     ops = [torch.randn(s, generator=gen, device=dev).to(dtype)
            for s in (shape_q, shape_k, shape_k)]
     g = torch.randn(shape_q, generator=gen, device=dev).to(dtype)
     a = [t.clone().requires_grad_() for t in ops]
-    got = torch.autograd.grad(attention(*a, causal=causal), a, g)
+    out_a = attention(*a, causal=causal)
+    got = torch.autograd.grad(out_a, a, g)
     p = [t.clone().requires_grad_() for t in ops]
-    want = torch.autograd.grad(attention_plain(*p, causal=causal), p, g)
+    out_p = attention_plain(*p, causal=causal)
+    want = torch.autograd.grad(out_p, p, g)
     dn = str(dtype).split(".")[1]
-    return {f"d{n} {dn} {label}": checks.compare(
+    errs = {f"out {dn} {label}": checks.compare(
+        "attention", f"forward {dn} {label}", out_a.detach(),
+        out_p.detach(), dn)}
+    errs.update({f"d{n} {dn} {label}": checks.compare(
         "attention", f"grad d{n} {dn} {label}", x, y, dn)
-        for n, x, y in zip("qkv", got, want)}
+        for n, x, y in zip("qkv", got, want)})
+    return errs
 
 
 def train_phase(torch, np, params, params_cpu, card, rec):
@@ -1312,18 +1320,21 @@ def train_phase(torch, np, params, params_cpu, card, rec):
     rng = np.random.default_rng(1)
     text = torch.from_numpy(rng.integers(0, gcfg.vocab_size,
                                          (TRAIN_BATCH, 1024))).to(dev)
+    audio = torch.from_numpy(0.05 * rng.standard_normal(
+        (TRAIN_BATCH, 1, TRAIN_SAMPLES)).astype(np.float32)).to(dev)
+    # the latent leg runs first: each leg's peak memory holds no state of
+    # the other (only the audio leg's final state is kept, for the
+    # checkpoint)
     legs = {
-        "audio": {"audio": torch.from_numpy(0.05 * rng.standard_normal(
-                      (TRAIN_BATCH, 1, TRAIN_SAMPLES)).astype(np.float32)
-                  ).to(dev),
-                  "padding_mask": torch.ones((TRAIN_BATCH, TRAIN_SAMPLES),
-                                             dtype=torch.int32, device=dev),
-                  "text_ids": text},
         "latents": {"latents": torch.from_numpy(rng.standard_normal(
                         (TRAIN_BATCH, frames, dcfg.hidden_dim)).astype(
                         np.float32)).to(dev),
-                    "text_ids": text}}
-    state0 = on(dev, init_dit_train_state(dcfg, seed=0))
+                    "text_ids": text},
+        "audio": {"audio": audio,
+                  "padding_mask": torch.ones((TRAIN_BATCH, TRAIN_SAMPLES),
+                                             dtype=torch.int32, device=dev),
+                  "text_ids": text}}
+    state0 = init_dit_train_state(dcfg, seed=0)
     n_params = ravel_tree(state0["params"])[0].numel()
     init_state, step_fn, eval_fn = build_ditto_train_step(
         dcfg, ccfg, gcfg, learning_rate=TRAIN_LR)
@@ -1336,12 +1347,11 @@ def train_phase(torch, np, params, params_cpu, card, rec):
     kernels.reset_launches()
     with torch.no_grad():
         nac_mod.audio_encoder({"embedding_head": params.embedding_head},
-                              params.codec, ccfg, legs["audio"]["audio"])
+                              params.codec, ccfg, audio)
     torch.cuda.synchronize()
     encode_b = kernels.launches["conv1d"]
 
     # ---- the two legs: warm-up, then timed synchronized steps ----
-    final = {}
     for name, batch in legs.items():
         want = train_step_launches(dcfg, ccfg, name == "audio")
         if name == "audio" and encode_b != want["conv1d"]:
@@ -1373,7 +1383,9 @@ def train_phase(torch, np, params, params_cpu, card, rec):
                      "audio_s_per_s": TRAIN_BATCH * 10 / step_s,
                      "peak_bytes": peak, "losses": losses,
                      "launches": launches}
-        final[name] = st
+        if name == "audio":
+            final = st
+        del st, m
 
     # ---- A without remat (forward only) and in eval ----
     _, step_plain, _ = build_ditto_train_step(
@@ -1441,12 +1453,14 @@ def train_phase(torch, np, params, params_cpu, card, rec):
     t = torch.from_numpy(prng.integers(0, pcfg.diffusion_steps, (1,)))
     noise = torch.from_numpy(prng.standard_normal(
         (1, 24000 // ccfg.hop_length, pcfg.hidden_dim)).astype(np.float32))
-    cpu_state = init_dit_train_state(pcfg, seed=0)
+    _, step32_cpu, _ = build_ditto_train_step(pcfg, ccfg, gcfg,
+                                              learning_rate=TRAIN_LR,
+                                              device="cpu")
+    cpu_state = init_dit_train_state(pcfg, seed=0, device="cpu")
     t0 = time.perf_counter()
-    got, gm = step32(on(dev, cpu_state), frozen, on(dev, clip), t=t,
-                     noise=noise)
-    want, wm = step32(cpu_state, frozen_of(params_cpu), clip, t=t,
-                      noise=noise)
+    got, gm = step32(on(dev, cpu_state), frozen, clip, t=t, noise=noise)
+    want, wm = step32_cpu(cpu_state, frozen_of(params_cpu), clip, t=t,
+                          noise=noise)
     # tolerances: the loss and the updated parameters 1e-5 of their scale,
     # the moments (the gradient summed over 12 layers in another order)
     # 1e-4 of theirs
@@ -1485,7 +1499,7 @@ def train_phase(torch, np, params, params_cpu, card, rec):
         fail("train: two steps from one state and seed differ")
     rcfg = DiTConfig(num_layers=REMAT_LAYERS, num_heads=12,
                      compute_dtype="float32", remat_blocks=False)
-    small = on(dev, init_dit_train_state(rcfg, seed=2))
+    small = init_dit_train_state(rcfg, seed=2)
     small_batch = {k: v[:2] for k, v in legs["latents"].items()}
     mus = {}
     for label, cfg_r in (("no remat", rcfg),
@@ -1514,15 +1528,14 @@ def train_phase(torch, np, params, params_cpu, card, rec):
     shutil.rmtree(tmp, ignore_errors=True)
     try:
         path = str(tmp / "dit_state.npz")
-        (_, save_s) = sync_time(torch, save_checkpoint, path, final["audio"],
+        (_, save_s) = sync_time(torch, save_checkpoint, path, final,
                                 {"epoch": 1})
         size = os.path.getsize(path)
         restored, load_s = sync_time(torch, restore_into,
-                                     on(dev, init_dit_train_state(dcfg, 9)),
-                                     path)
+                                     init_dit_train_state(dcfg, 9), path)
         nxt = [step_fn(s, frozen, legs["latents"],
                        torch.Generator(device=dev).manual_seed(6))[0]
-               for s in (final["audio"], restored)]
+               for s in (final, restored)]
         if not (torch.equal(flat_params(nxt[0]), flat_params(nxt[1]))
                 and torch.equal(nxt[0]["opt_state"][0]["nu"],
                                 nxt[1]["opt_state"][0]["nu"])
@@ -1542,7 +1555,7 @@ def train_phase(torch, np, params, params_cpu, card, rec):
 
         def fit(epochs):
             return Trainer(fstep, feval).fit(
-                finit(on(dev, init_dit_train_state(fcfg, 3)["params"])),
+                finit(init_dit_train_state(fcfg, 3)["params"]),
                 frozen, lambda: [small_batch, small_batch],
                 lambda: [small_batch], epochs=epochs,
                 generator=torch.Generator().manual_seed(0), model_name="dit",
@@ -1567,7 +1580,8 @@ def train_phase(torch, np, params, params_cpu, card, rec):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     rec["train"] = out
-    return train_step_launches(dcfg, ccfg, True)
+    # launches per step, as counted in the audio leg's timed steps
+    return {k: v // TRAIN_TIMED for k, v in out["audio"]["launches"].items()}
 
 
 # --------------------------------------------------------------------------

@@ -28,6 +28,7 @@ from typing import Any, Callable, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from . import resolve_device
 from .config import (ByT5Config, CodecConfig, DiTConfig, PipelineConfig,
                      SLPConfig, VocoderConfig, byt5_small_config)
 
@@ -45,16 +46,24 @@ def tree_map(fn: Callable, tree):
     return fn(tree)
 
 
-def tree_leaves(tree, prefix: str = ""):
-    """(path, leaf) pairs in a fixed order (sorted dict keys)."""
+def tree_paths(tree, prefix: tuple = ()):
+    """(path, leaf) pairs in JAX's flatten order (sorted dict keys, sequence
+    indices); a path is a tuple of dict keys (str) and indices (int)."""
     if isinstance(tree, Mapping):
         for k in sorted(tree):
-            yield from tree_leaves(tree[k], f"{prefix}/{k}")
+            yield from tree_paths(tree[k], prefix + (str(k),))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from tree_leaves(v, f"{prefix}/{i}")
+            yield from tree_paths(v, prefix + (i,))
     else:
         yield prefix, tree
+
+
+def tree_leaves(tree):
+    """(path, leaf) pairs in ``tree_paths`` order, the path joined as
+    ``/key/0/...``."""
+    for path, leaf in tree_paths(tree):
+        yield "".join(f"/{p}" for p in path), leaf
 
 
 def tree_unflatten(template, leaves):
@@ -384,11 +393,14 @@ def new_train_state(params, flat_opt: bool = True) -> Dict:
 
 
 def init_dit_train_state(cfg: DiTConfig, seed: int = 0,
-                         flat_opt: bool = True) -> Dict:
-    """A fresh CPU fp32 DiTTo train state: the JAX ``init_ditto`` tree's
-    structure, shapes and distributions from a numpy seed."""
+                         flat_opt: bool = True, device=None) -> Dict:
+    """A fresh fp32 DiTTo train state on ``device`` (``cuda`` unless the
+    caller passes ``"cpu"``): the JAX ``init_ditto`` tree's structure,
+    shapes and distributions from a numpy seed."""
+    dev = resolve_device(device)
     return new_train_state(
-        tree_map(torch.from_numpy, fill_spec(_dit_spec(cfg), seed)), flat_opt)
+        tree_map(lambda a: torch.from_numpy(a).to(dev),
+                 fill_spec(_dit_spec(cfg), seed)), flat_opt)
 
 
 def from_jax_train_state(tree: Mapping[str, Any]) -> Dict:

@@ -21,22 +21,16 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from ..params import tree_unflatten
+from ..params import tree_paths, tree_unflatten
 
 _SEP = "//"
 
 
-def _items(tree, prefix=()):
-    """(path parts, leaf) in JAX's flatten order (``params.tree_leaves``'s:
-    sorted dict keys, sequence indices)."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _items(tree[k], prefix + (f"k:{k}",))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _items(v, prefix + (f"i:{i}",))
-    else:
-        yield prefix, tree
+def _key(path) -> str:
+    """A ``tree_paths`` path as JAX's ``_path_str``: ``k:`` before a dict
+    key, ``i:`` before a sequence index."""
+    return _SEP.join(f"i:{p}" if isinstance(p, int) else f"k:{p}"
+                     for p in path)
 
 
 def _host(leaf) -> np.ndarray:
@@ -46,7 +40,7 @@ def _host(leaf) -> np.ndarray:
 
 
 def _flatten(tree: Any) -> Dict[str, np.ndarray]:
-    return {_SEP.join(path): _host(leaf) for path, leaf in _items(tree)}
+    return {_key(path): _host(leaf) for path, leaf in tree_paths(tree)}
 
 
 def _unflatten(flat: Dict[str, np.ndarray]) -> Any:
@@ -132,8 +126,8 @@ def restore_into(template: Any, path: str) -> Any:
     dicts and lists keep their structure. Missing or extra paths raise
     KeyError, a shape mismatch ValueError (the JAX ``restore_into``)."""
     flat = _read(path)
-    items = list(_items(template))
-    paths = [_SEP.join(p) for p, _ in items]
+    items = list(tree_paths(template))
+    paths = [_key(p) for p, _ in items]
     missing = [p for p in paths if p not in flat]
     extra = sorted(set(flat) - set(paths))
     if missing or extra:

@@ -17,7 +17,10 @@
     loss alone, without gradients, dropout on as in JAX (whose
     ``eval_fn`` passes the key too).
 
-A ``torch.Generator`` on the state's device stands in for JAX's key: t,
+The step runs on ``device`` (``cuda`` unless the caller passes ``"cpu"``):
+``init_state`` puts the parameters there, ``step_fn`` and ``eval_fn`` move
+the batch there and raise on a state or frozen tree that lies elsewhere.
+A ``torch.Generator`` on that device stands in for JAX's key: t,
 then the noise, then the dropout masks, as ``jax.random.split(key, 3)``
 orders them; ``t=`` and ``noise=`` replace the first two draws (parity
 runs). The state is JAX's (``params.py``), so checkpoints cross.
@@ -36,6 +39,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .. import resolve_device
 from ..config import CodecConfig, DiTConfig, GPT2Config
 from ..diffusion.schedule import NoiseSchedule, q_sample
 from ..models import dit as dit_mod
@@ -103,7 +107,7 @@ def build_ditto_train_step(dit_cfg: DiTConfig, codec_cfg: CodecConfig,
                            learning_rate: Optional[float] = None,
                            weight_decay: float = 1e-6,
                            encode_dtype: str = "float32",
-                           flat_opt: bool = True):
+                           flat_opt: bool = True, device=None):
     """(init_state, step_fn, eval_fn) for DiTTo diffusion training:
 
       init_state(dit_params) -> {"params", "opt_state", "step"}
@@ -114,14 +118,13 @@ def build_ditto_train_step(dit_cfg: DiTConfig, codec_cfg: CodecConfig,
 
     ``frozen`` holds ``codec``, ``gpt2`` (its ``wte``) and
     ``embedding_head``; ``batch`` holds ``text_ids`` and either
-    ``latents`` or ``audio`` (with an optional ``padding_mask``), on the
-    state's device. ``generator`` (on that device) draws t, the noise and
-    the dropout masks; None draws from the default generator and drops
-    nothing."""
+    ``latents`` or ``audio`` (with an optional ``padding_mask``).
+    ``device`` is resolved by ``resolve_device``: the state and the frozen
+    tree must lie there, the batch is moved there. ``generator`` (on that
+    device) draws t, the noise and the dropout masks; None draws from the
+    default generator and drops nothing."""
     lr = learning_rate if learning_rate is not None else dit_cfg.learning_rate
     opt = make_adamw(lr, weight_decay, flat=flat_opt)
-    schedule = NoiseSchedule.cosine(dit_cfg.diffusion_steps)
-    on_device = {}
     if dit_cfg.ref_compat and dit_cfg.prediction_type != "eps":
         raise ValueError("v/x0 prediction assumes the corrected (non-"
                          "inverted) schedule; ref_compat supports eps only")
@@ -129,9 +132,23 @@ def build_ditto_train_step(dit_cfg: DiTConfig, codec_cfg: CodecConfig,
         raise ValueError(
             f"unknown prediction_type {dit_cfg.prediction_type!r}")
     enc_dt = getattr(torch, encode_dtype)
+    dev = resolve_device(device)
+    sc = NoiseSchedule.cosine(dit_cfg.diffusion_steps).to(dev)
 
     def init_state(dit_params) -> Dict:
-        return new_train_state(dit_params, flat_opt)
+        return new_train_state(tree_map(lambda p: p.to(dev), dit_params),
+                               flat_opt)
+
+    def placed(state, frozen, batch) -> Dict:
+        """The batch on ``dev``; raises if the state or the frozen tree
+        lies elsewhere."""
+        for what, tree in (("state", state), ("frozen", frozen)):
+            for path, leaf in tree_leaves(tree):
+                if leaf.device.type != dev.type:
+                    raise ValueError(
+                        f"the train step runs on {dev.type}, but {what}"
+                        f"{path} lies on {leaf.device}")
+        return {k: v.to(dev) for k, v in batch.items()}
 
     @torch.no_grad()
     def encode_batch(frozen, batch):
@@ -151,14 +168,8 @@ def build_ditto_train_step(dit_cfg: DiTConfig, codec_cfg: CodecConfig,
         text_ids = batch["text_ids"][:, :latents.shape[1]]
         return latents, gpt2_mod.embed_tokens(frozen["gpt2"], text_ids)
 
-    def sched(device) -> NoiseSchedule:
-        if device not in on_device:
-            on_device[device] = schedule.to(device)
-        return on_device[device]
-
     def loss_fn(dit_params, latents, text_emb, generator, t, noise):
-        b, dev = latents.shape[0], latents.device
-        sc = sched(dev)
+        b = latents.shape[0]
         if t is None:
             t = torch.randint(0, dit_cfg.diffusion_steps, (b,),
                               generator=generator, device=dev)
@@ -182,6 +193,7 @@ def build_ditto_train_step(dit_cfg: DiTConfig, codec_cfg: CodecConfig,
 
     def step_fn(state, frozen, batch, generator=None, *, t=None,
                 noise=None) -> Tuple[Dict, Dict]:
+        batch = placed(state, frozen, batch)
         latents, text_emb = encode_batch(frozen, batch)
         params = tree_map(lambda p: p.detach().requires_grad_(),
                           state["params"])
@@ -201,6 +213,7 @@ def build_ditto_train_step(dit_cfg: DiTConfig, codec_cfg: CodecConfig,
     @torch.no_grad()
     def eval_fn(state, frozen, batch, generator=None, *, t=None,
                 noise=None) -> Dict:
+        batch = placed(state, frozen, batch)
         latents, text_emb = encode_batch(frozen, batch)
         return {"loss": loss_fn(state["params"], latents, text_emb,
                                 generator, t, noise)}

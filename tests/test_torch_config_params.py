@@ -270,6 +270,16 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
         with pytest.raises(RuntimeError, match="CUDA"):
             build(tc)
         build(tc, device="cpu")
+    # training: the step builder and the seeded train state
+    from ditto_tts_tpu_torch.params import init_dit_train_state
+    from ditto_tts_tpu_torch.train.steps import build_ditto_train_step
+    dit = tc.dit.replace(num_layers=1)
+    for build in (lambda **kw: build_ditto_train_step(
+                      dit, tc.codec, tconfig.GPT2Config(), **kw),
+                  lambda **kw: init_dit_train_state(dit, **kw)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+        build(device="cpu")
 
 
 def test_kernel_wrappers_have_no_cpu_fallback():

@@ -203,7 +203,7 @@ def _jtree(tree):
 def _port_step(cfg, encode_dtype):
     return tsteps.build_ditto_train_step(
         to_torch_cfg(cfg), to_torch_cfg(CODEC_CFG), TGPT2,
-        learning_rate=1e-4, encode_dtype=encode_dtype)
+        learning_rate=1e-4, encode_dtype=encode_dtype, device="cpu")
 
 
 def _jax_draws(key, cfg, n_frames):
@@ -335,7 +335,8 @@ def test_train_state_keys_are_jax_keys(tmp_path):
     jinit, _ = _jax_step(DIT_CFG, "float32")
     jstate = jinit(_jtree(dit))
     jckpt.save_checkpoint(str(tmp_path / "j.npz"), jstate)
-    tstate = tparams.init_dit_train_state(to_torch_cfg(DIT_CFG), seed=4)
+    tstate = tparams.init_dit_train_state(to_torch_cfg(DIT_CFG), seed=4,
+                                          device="cpu")
     tckpt.save_checkpoint(str(tmp_path / "t.npz"), tstate)
     # the numpy form saves through JAX's own writer to the same file
     jckpt.save_checkpoint(str(tmp_path / "n.npz"),
@@ -367,7 +368,8 @@ def test_checkpoints_cross_both_ways(tmp_path):
     jckpt.save_checkpoint(path, j1, metadata={"epoch": 1})
 
     _, tstep, _ = _port_step(cfg, "float32")
-    template = tparams.init_dit_train_state(to_torch_cfg(cfg), seed=0)
+    template = tparams.init_dit_train_state(to_torch_cfg(cfg), seed=0,
+                                            device="cpu")
     t1 = tckpt.restore_into(template, path)
     assert t1["step"].dtype == torch.int32 and int(t1["step"]) == 1
     key2 = jax.random.key(10)
@@ -399,7 +401,8 @@ def test_trainer_fit_resume_and_best(tmp_path):
     dit, frozen, batches = _fixtures()
     cfg = to_torch_cfg(DIT_CFG)
     init_state, step_fn, eval_fn = tsteps.build_ditto_train_step(
-        cfg, to_torch_cfg(CODEC_CFG), TGPT2, learning_rate=1e-3)
+        cfg, to_torch_cfg(CODEC_CFG), TGPT2, learning_rate=1e-3,
+        device="cpu")
     tfrozen = tparams.tree_map(tt, frozen)
     batch = {k: tt(v) for k, v in batches["latents"].items()}
     ckdir = str(tmp_path / "ck")
@@ -432,3 +435,39 @@ def test_trainer_fit_resume_and_best(tmp_path):
         "loss" in rec["val"]
     meta = json.load(open(os.path.join(ckdir, "dit_epoch_3.json")))
     assert meta["epoch"] == 3 and len(meta["history"]["train"]["loss"]) == 3
+
+
+@pytest.mark.parametrize("wrapped", [False, True])
+def test_convert_torch_checkpoint_matches_jax(tmp_path, wrapped):
+    """A reference ``.pth``, a bare state dict or one under
+    ``model_state_dict`` beside the trainer's other entries, reads as the
+    JAX ``convert_torch_checkpoint`` reads it."""
+    gen = torch.Generator().manual_seed(0)
+    sd = {"proj.weight": torch.randn(4, 3, generator=gen),
+          "proj.bias": torch.randn(4, generator=gen),
+          "steps": torch.tensor([7], dtype=torch.int64)}
+    obj = {"epoch": 3, "model_state_dict": sd, "loss": 0.5} if wrapped else sd
+    path = str(tmp_path / "ref.pth")
+    torch.save(obj, path)
+    got, want = tckpt.convert_torch_checkpoint(path), \
+        jckpt.convert_torch_checkpoint(path)
+    assert sorted(got) == sorted(want) == sorted(sd)
+    for name in want:
+        assert got[name].dtype == want[name].dtype
+        assert np.array_equal(got[name], want[name]), name
+
+
+def test_train_step_refuses_a_tree_on_another_device():
+    """The step runs on its own device: a state or frozen tree elsewhere
+    raises rather than training there."""
+    _, frozen, batches = _fixtures()
+    _, tstep, teval = _port_step(DIT_CFG, "float32")
+    state = tparams.init_dit_train_state(to_torch_cfg(DIT_CFG), device="cpu")
+    tfrozen = tparams.tree_map(tt, frozen)
+    batch = {k: tt(v) for k, v in batches["latents"].items()}
+    meta = functools.partial(tparams.tree_map, lambda t: t.to("meta"))
+    for fn in (tstep, teval):
+        with pytest.raises(ValueError, match="but state/.* lies on meta"):
+            fn(meta(state), tfrozen, batch)
+        with pytest.raises(ValueError, match="but frozen/codec/.* lies on meta"):
+            fn(state, meta(tfrozen), batch)
