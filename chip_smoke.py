@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's DiTTo serving chain and its training step
-on one NVIDIA H100.
+"""Drive the PyTorch/CUDA port's DiTTo serving chain and its training path
+(the DiTTo, NAC and SLP steps, the data layer and the training CLIs) on one
+NVIDIA H100.
 
     python3 chip_smoke.py        (from the root of a checkout; one CUDA card)
 
@@ -82,12 +83,32 @@ Phases (any failure exits non-zero and prints no result line):
      layers, fp32, dropout on; a checkpoint of the full train state
      saved, restored and stepped bitwise equal; Trainer.fit (1 layer, 2
      epochs x 2 steps) writes its files and resumes from epoch 2
- 11. a {"kernels": [...]} line, then the card line, then the last line
+ 11. NAC and SLP training and the training path from a corpus: the NAC
+     step (build_nac_train_step: GPT2-small 12 x 768 from phase 4, EnCodec
+     1.5 kbps, the straight-through VQ, flat AdamW lr 1e-4; B=4 of the 10 s
+     bucket, 1024 GPT2 ids cut to 750) and the SLP step (ByT5-small from
+     phase 8, the SLP's one layer with one 1472-wide head; B=8, 128 byte
+     ids), each a warm-up and 5 timed synchronized steps (step s,
+     audio-s/s, peak memory, finite metrics) with exact launches a step
+     (NAC: B 28, the encode's and the decode's; SLP: B 14; A, C, D 0) and
+     matmul-softmax calls (NAC: GPT2's 12; SLP: 2 + 12); a ref_compat NAC
+     step without VQ losses; one fp32 step of each card vs CPU (1 s clip,
+     B=1; index agreement, the CPU's indices on the card where one
+     flipped) and two steps from one state bitwise equal; a synthetic MLS
+     corpus (10 s and ~12 s WAV clips, and Ogg-Opus ones where libopus
+     loads) through MLSDataset, batches and batches_native (the same
+     items), the decoder that served each clip, the latent cache
+     (precompute on the card in bf16, each cached batch bitwise equal to a
+     direct encode of its members at the same size; against B=1 encodes,
+     the frames that agree and max|err|); then train_nac, train_slp and
+     train_ditto (--latent-cache, --nac-checkpoint, --layers 1) as
+     subprocesses on the card, and train_ditto --epochs 2, which resumes
+ 12. a {"kernels": [...]} line, then the card line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
 Weights are random (numpy seed 0, init_generator_params and
-init_dit_train_state); nothing is downloaded. Phase 10's checkpoints go to
-.chip_smoke_tmp/ in the checkout and are removed after it. With DITTO_RECORD_DIR set, a JSON record of every number goes
+init_dit_train_state); nothing is downloaded. Phases 10 and 11 write to
+.chip_smoke_tmp/ in the checkout and remove it after them. With DITTO_RECORD_DIR set, a JSON record of every number goes
 to $DITTO_RECORD_DIR/chip_smoke.json.
 """
 
@@ -141,9 +162,10 @@ FUSED_PALLAS_PATH = {"attention": 1200, "conv1d": 90 + 54, "act_conv": 0,
 # BigVGAN's last two stages under aa_impl="fused_ncl", one forward
 FUSED_NCL_PATH = {"attention": 0, "conv1d": 4, "act_conv": 36, "snake": 0}
 # matmul-softmax attention per SLP-chain request (no kernel: JAX computes
-# both outside Pallas): the decoder's self and cross attention over one
-# 1472-wide head, and ByT5's biased attention in each of its 12 layers
-SLP_PLAIN_ATTENTION = {"decoder": 2, "byt5": 12}
+# it outside Pallas): the decoder's self and cross attention over one
+# 1472-wide head, ByT5's biased attention in each of its 12 layers, and
+# none of GPT2's (serving reads only its wte)
+SLP_PLAIN_ATTENTION = {"decoder": 2, "byt5": 12, "gpt2": 0}
 
 
 class ShapeLog:
@@ -191,15 +213,15 @@ class ShapeLog:
 
 
 class PlainAttentionLog:
-    """Counts the SLP chain's matmul-softmax attention calls while it is
-    entered, by caller and shape: it wraps ``attention_plain`` where the
-    decoder (``nn/transformer.py``) and ByT5 (``text/byt5.py``) look it up
-    at call time, and restores it after."""
+    """Counts the matmul-softmax attention calls while it is entered, by
+    caller and shape: it wraps ``attention_plain`` where the SLP decoder
+    (``nn/transformer.py``), ByT5 (``text/byt5.py``) and GPT2
+    (``text/gpt2.py``) look it up at call time, and restores it after."""
 
     def __enter__(self):
         from ditto_tts_tpu_torch.nn import transformer
-        from ditto_tts_tpu_torch.text import byt5
-        self.mods = {"decoder": transformer, "byt5": byt5}
+        from ditto_tts_tpu_torch.text import byt5, gpt2
+        self.mods = {"decoder": transformer, "byt5": byt5, "gpt2": gpt2}
         self.saved = {k: m.attention_plain for k, m in self.mods.items()}
         self.counts = {k: 0 for k in self.mods}
         self.shapes = {}
@@ -1585,6 +1607,469 @@ def train_phase(torch, np, params, params_cpu, card, rec):
 
 
 # --------------------------------------------------------------------------
+# phase 11: the NAC and SLP steps, the data layer and the training CLIs
+# --------------------------------------------------------------------------
+
+# the JAX CLIs' setups (scripts/train_nac.py, scripts/train_slp.py):
+# NACConfig (B=4, lr 1e-4, GPT2-small) and SLPConfig (B=8, lr 1e-4,
+# ByT5-small), the 10 s bucket
+NAC_BATCH, SLP_BATCH, CORPUS_TIMED = 4, 8, 5
+# matmul-softmax attention a step (forward; the backward calls none):
+# GPT2's 12 layers in the NAC step; the SLP decoder's 2 and ByT5's 12
+NAC_PLAIN_ATTENTION = {"decoder": 0, "byt5": 0, "gpt2": 12}
+SLP_STEP_PLAIN_ATTENTION = {"decoder": 2, "byt5": 12, "gpt2": 0}
+# the synthetic corpus: exactly 10 s (the 10 s bucket) and ~12 s (the
+# 12.5 s bucket), WAV bytes under MLS's .opus names; real Ogg-Opus clips of
+# 10.5 and 11.5 s beside them where libopus loads
+CORPUS_WAV_SECONDS = (10.0, 10.0, 12.0, 12.2)
+CORPUS_OPUS_SECONDS = (10.5, 11.5)
+
+
+def codec_b_launches(codec_cfg) -> int:
+    """Kernel B launches of one SEANet encode or decode: the init and final
+    convs and each resblock's three stride-1 convs."""
+    return 2 + 3 * len(codec_cfg.ratios) * codec_cfg.num_residual_layers
+
+
+@contextlib.contextmanager
+def fixed_indices(codes=None, vq_idx=None):
+    """Within it, the codec encode returns ``codes`` and the NAC's VQ picks
+    ``vq_idx`` (tensors on the caller's device), so a card step can run on
+    the CPU's indices where an argmax flipped."""
+    from ditto_tts_tpu_torch.codec import encodec, rvq
+    saved = (encodec.codec_encode, rvq.nearest_codebook_indices)
+    if codes is not None:
+        encodec.codec_encode = lambda *a, **k: codes
+    if vq_idx is not None:
+        rvq.nearest_codebook_indices = lambda *a, **k: vq_idx
+    try:
+        yield
+    finally:
+        encodec.codec_encode, rvq.nearest_codebook_indices = saved
+
+
+def timed_steps(torch, np, label, step_fn, state, frozen, batch, want,
+                plain_want, b, card):
+    """A warm-up, then CORPUS_TIMED synchronized steps with the peak memory
+    of this leg, exact kernel launches and matmul-softmax calls a step."""
+    from ditto_tts_tpu_torch import kernels
+    st, m = step_fn(state, frozen, batch)
+    torch.cuda.synchronize()
+    metrics = [{k: v.item() for k, v in m.items()}]
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    times = []
+    with PlainAttentionLog() as plain:
+        for _ in range(CORPUS_TIMED):
+            (st, m), dt = sync_time(torch, step_fn, st, frozen, batch)
+            times.append(dt)
+            metrics.append({k: v.item() for k, v in m.items()})
+    launches = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = sorted(times)[len(times) // 2]
+    log(f"  {label}: steps {[round(t, 4) for t in times]} s (median "
+        f"{step_s:.4f} s, {b * 10 / step_s:.1f} audio-s/s), peak "
+        f"{peak / 2**30:.2f} GiB, launches over {CORPUS_TIMED} steps "
+        f"{launches}, matmul-softmax calls {plain.counts} ({card})")
+    log(f"    metrics: {metrics[0]} ... {metrics[-1]}")
+    if not all(np.isfinite(v) for m in metrics for v in m.values()):
+        fail(f"{label}: a non-finite metric {metrics}")
+    check_launches(label, launches, want, CORPUS_TIMED)
+    if plain.counts != {k: v * CORPUS_TIMED for k, v in plain_want.items()}:
+        fail(f"{label}: matmul-softmax attention calls {plain.counts}, "
+             f"expected {plain_want} a step")
+    return st, {"step_s": times, "median_step_s": step_s,
+                "audio_s_per_s": b * 10 / step_s, "peak_bytes": peak,
+                "metrics": metrics, "launches": launches,
+                "plain_attention": dict(plain.counts)}
+
+
+def key_bias_mask(torch, params):
+    """The attention's key biases (rows h..2h of every ``in_proj_bias``) in
+    ``ravel_tree`` order. Their gradient is zero in exact arithmetic
+    (softmax ignores a constant added to a whole row), so each device
+    computes rounding noise, and Adam's g / (|g| + eps) moves them by up
+    to lr in a direction of the device's own."""
+    from ditto_tts_tpu_torch.params import tree_leaves
+    marks = []
+    for path, leaf in tree_leaves(params):
+        m = torch.zeros(leaf.numel(), dtype=torch.bool)
+        if path.endswith("in_proj_bias"):
+            h = leaf.numel() // 3
+            m[h:2 * h] = True
+        marks.append(m)
+    return torch.cat(marks)
+
+
+def compare_states(torch, np, label, got, want, gm, wm, loss_key):
+    """One fp32 step card vs CPU at phase 10's tolerances: the loss and
+    the updated params 1e-5 of their scale, mu and nu 1e-4; the key
+    biases (``key_bias_mask``) within 2 lr of each other (each moves by
+    at most lr)."""
+    from ditto_tts_tpu_torch.params import ravel_tree
+    kb = key_bias_mask(torch, want["params"])
+    p_got, p_want = ravel_tree(got["params"])[0].cpu(), \
+        ravel_tree(want["params"])[0]
+    cmp = {"loss": (gm[loss_key], wm[loss_key], 1e-5),
+           "mu": (got["opt_state"][0]["mu"], want["opt_state"][0]["mu"],
+                  1e-4),
+           "nu": (got["opt_state"][0]["nu"], want["opt_state"][0]["nu"],
+                  1e-4),
+           "params": (p_got[~kb], p_want[~kb], 1e-5)}
+    if kb.any():
+        err = (p_got[kb] - p_want[kb]).abs().max().item()
+        log(f"  {label}: the attention's key biases ({int(kb.sum())} "
+            f"elements) move {err:.3e} apart (bound 2 lr = "
+            f"{2 * TRAIN_LR:g})")
+        if err > 2 * TRAIN_LR * (1 + 1e-6):
+            fail(f"{label} card vs CPU: key biases {err} apart, above 2 lr")
+    res = {}
+    for key, (x, y, tol) in cmp.items():
+        err = (x.cpu() - y).abs().max().item()
+        scale = y.abs().max().item()
+        res[key] = {"max_abs_err": err, "scale": scale, "tol": tol}
+        if not (np.isfinite(scale) and err <= tol * scale):
+            fail(f"{label} card vs CPU: {key} differs by {err} (scale "
+                 f"{scale}, tol {tol})")
+    if int(got["step"]) != 1:
+        fail(f"{label} card vs CPU: step is not 1")
+    log(f"  {label}, one fp32 step card vs CPU: " + ", ".join(
+        f"{k} {v['max_abs_err']:.3e} (scale {v['scale']:.3e}, tol "
+        f"{v['tol']:g} x scale)" for k, v in res.items()))
+    return res
+
+
+def write_corpus(np, root: Path, opus: bool) -> list:
+    """An MLS-layout corpus under ``root``; returns the clip paths."""
+    import wave
+    from ditto_tts_tpu_torch.data import native_loader as nl
+    lines, paths = [], []
+    clips = [(s, "wav") for s in CORPUS_WAV_SECONDS]
+    if opus:
+        clips += [(s, "opus") for s in CORPUS_OPUS_SECONDS]
+    for i, (secs, kind) in enumerate(clips):
+        utt = f"10{i:02d}_20{i:02d}_000000"
+        path = root / "audio_clean" / f"10{i:02d}" / f"20{i:02d}" / \
+            f"{utt}.opus"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        t = np.arange(int(secs * 24000)) / 24000
+        pcm = 0.3 * np.sin(2 * np.pi * (180.0 + 20 * i) * t)
+        if kind == "opus":
+            nl.encode_opus(str(path), pcm.astype(np.float32), 24000)
+        else:
+            with wave.open(str(path), "wb") as f:
+                f.setnchannels(1)
+                f.setsampwidth(2)
+                f.setframerate(24000)
+                f.writeframes((pcm * 32767).astype(np.int16).tobytes())
+        lines.append(f"{utt}\tbonjour, numéro {i} de l'élève")
+        paths.append(str(path))
+    (root / "transcripts.txt").write_text("\n".join(lines), encoding="utf-8")
+    return paths
+
+
+def by_text(np, batches) -> dict:
+    """{text ids: (samples, label)} over batches of any order and
+    padding."""
+    out = {}
+    for b in batches:
+        for r in range(len(b["label"])):
+            n = int(b["padding_mask"][r].sum())
+            out[tuple(b["text_ids"][r])] = (b["audio"][r, 0, :n].copy(),
+                                            int(b["label"][r]))
+    return out
+
+
+def corpus_phase(torch, np, params, params_cpu, byt5_gpu, card, rec):
+    import shutil
+    from ditto_tts_tpu_torch.config import (CodecConfig, GPT2Config,
+                                            NACConfig, SLPConfig,
+                                            byt5_small_config)
+    from ditto_tts_tpu_torch.data import latents as lat_mod
+    from ditto_tts_tpu_torch.data import mls
+    from ditto_tts_tpu_torch.data import native_loader as nl
+    from ditto_tts_tpu_torch.data.processing import decoder_for
+    from ditto_tts_tpu_torch.codec import encodec, rvq
+    from ditto_tts_tpu_torch.params import (init_nac_train_state,
+                                            init_slp_train_state, ravel_tree,
+                                            tree_map)
+    from ditto_tts_tpu_torch.text.tokenizers import ByT5Tokenizer
+    from ditto_tts_tpu_torch.train.steps import (build_nac_train_step,
+                                                 build_slp_train_step)
+
+    t_phase = time.perf_counter()
+    dev = params.codec["encoder"]["init_conv"]["weight"].device
+    out = {"card": card}
+    ccfg, gcfg, bcfg = CodecConfig(), GPT2Config(), byt5_small_config()
+    ncfg, scfg = NACConfig(), SLPConfig()
+    enc_b = codec_b_launches(ccfg)
+    nac_want = {"attention": 0, "conv1d": 2 * enc_b, "act_conv": 0,
+                "snake": 0}
+    slp_want = {"attention": 0, "conv1d": enc_b, "act_conv": 0, "snake": 0}
+    rng = np.random.default_rng(11)
+
+    def on(device, tree):
+        return tree_map(lambda t: t.to(device), tree)
+
+    # ---- the NAC step at full width ----
+    nac_frozen = {"codec": params.codec, "gpt2": params.gpt2}
+    samples = TRAIN_SAMPLES
+    text_mask = np.ones((NAC_BATCH, 1024), np.int32)
+    text_mask[1, 900:] = 0
+    nac_batch = {
+        "audio": torch.from_numpy(0.05 * rng.standard_normal(
+            (NAC_BATCH, 1, samples)).astype(np.float32)).to(dev),
+        "padding_mask": torch.ones((NAC_BATCH, samples), dtype=torch.int32,
+                                   device=dev),
+        "text_ids": torch.from_numpy(rng.integers(
+            0, gcfg.vocab_size, (NAC_BATCH, 1024))).to(dev),
+        "text_mask": torch.from_numpy(text_mask).to(dev)}
+    nac_state = init_nac_train_state(ncfg, seed=0, device=dev)
+    _, nac_step, _ = build_nac_train_step(ncfg, ccfg, gcfg,
+                                          learning_rate=TRAIN_LR, device=dev)
+    log(f"  NAC: GPT2-small {gcfg.n_layer} x {gcfg.n_embd} (phase 4's "
+        f"tree), EnCodec 24 kHz at 1.5 kbps, straight-through VQ "
+        f"{ncfg.codebook_size} x {ncfg.hidden_size}, flat AdamW lr "
+        f"{TRAIN_LR}; B={NAC_BATCH}, {samples} samples "
+        f"({samples // ccfg.hop_length} frames), 1024 GPT2 ids cut to "
+        f"{samples // ccfg.hop_length}")
+    _, out["nac"] = timed_steps(torch, np, "NAC step", nac_step, nac_state,
+                                nac_frozen, nac_batch, nac_want,
+                                NAC_PLAIN_ATTENTION, NAC_BATCH, card)
+    _, ref_step, _ = build_nac_train_step(ncfg, ccfg, gcfg, ref_compat=True,
+                                          learning_rate=TRAIN_LR, device=dev)
+    _, m = ref_step(nac_state, nac_frozen, nac_batch)
+    if sorted(m) != ["lm_loss", "reconstruction_loss", "total_loss"] or \
+            not all(np.isfinite(v.item()) for v in m.values()):
+        fail(f"NAC ref_compat step: metrics {m}")
+    log(f"  NAC ref_compat step: {sorted(m)} (no VQ losses)")
+    del nac_batch
+
+    # ---- the SLP step at full width ----
+    slp_frozen = {"codec": params.codec, "byt5": byt5_gpu}
+    smask = np.ones((SLP_BATCH, 128), np.int32)
+    smask[:, 100:] = 0
+    slp_batch = {
+        "audio": torch.from_numpy(0.05 * rng.standard_normal(
+            (SLP_BATCH, 1, samples)).astype(np.float32)).to(dev),
+        "padding_mask": torch.ones((SLP_BATCH, samples), dtype=torch.int32,
+                                   device=dev),
+        "text_ids": torch.from_numpy(rng.integers(
+            3, 259, (SLP_BATCH, 128))).to(dev),
+        "text_mask": torch.from_numpy(smask).to(dev),
+        "label": torch.from_numpy(rng.integers(0, 11, (SLP_BATCH,))).to(dev)}
+    slp_state = init_slp_train_state(scfg, ccfg.codebook_size, seed=0,
+                                     device=dev)
+    _, slp_step, _ = build_slp_train_step(scfg, ccfg, bcfg,
+                                          learning_rate=TRAIN_LR, device=dev)
+    log(f"  SLP: ByT5-small {bcfg.num_layers} x {bcfg.d_model} (phase 8's "
+        f"tree), the decoder's {scfg.num_layers} layer with "
+        f"{scfg.num_heads} head of {scfg.embedding_dim}, flat AdamW lr "
+        f"{TRAIN_LR}; B={SLP_BATCH}, {samples} samples, 128 byte ids")
+    _, out["slp"] = timed_steps(torch, np, "SLP step", slp_step, slp_state,
+                                slp_frozen, slp_batch, slp_want,
+                                SLP_STEP_PLAIN_ATTENTION, SLP_BATCH, card)
+    del slp_batch
+
+    # ---- one fp32 step each, card vs CPU; determinism ----
+    prng = np.random.default_rng(12)
+    clip = prng.standard_normal((1, 1, 24000)).astype(np.float32) * 0.05
+    frames = 24000 // ccfg.hop_length
+    nac_clip = {"audio": torch.from_numpy(clip),
+                "padding_mask": torch.ones((1, 24000), dtype=torch.int32),
+                "text_ids": torch.from_numpy(prng.integers(
+                    0, gcfg.vocab_size, (1, 96))),
+                "text_mask": torch.ones((1, 96), dtype=torch.int32)}
+    slp_clip = {"audio": torch.from_numpy(clip),
+                "padding_mask": torch.ones((1, 24000), dtype=torch.int32),
+                "text_ids": torch.from_numpy(prng.integers(3, 259, (1, 64))),
+                "text_mask": torch.ones((1, 64), dtype=torch.int32),
+                "label": torch.tensor([4])}
+    agree = {}
+    with torch.no_grad():
+        codes = {d: encodec.codec_encode(
+            p.codec, ccfg, torch.from_numpy(clip).to(on_dev))
+            for d, p, on_dev in (("card", params, dev),
+                                 ("cpu", params_cpu, "cpu"))}
+        agree["codec codes"] = (codes["card"].cpu() == codes["cpu"]).float(
+            ).mean().item()
+        trainable = {"card": nac_state["params"],
+                     "cpu": on("cpu", nac_state["params"])}
+        vq = {d: rvq.nearest_codebook_indices(
+            t["embedding_head"]["weight"][codes["cpu"].to(t["embedding_head"][
+                "weight"].device)], t["vector_quantizer"]["codebook"])
+            for d, t in trainable.items()}
+        agree["NAC VQ indices"] = (vq["card"].cpu() == vq["cpu"]).float(
+            ).mean().item()
+    log(f"  index agreement card vs CPU, 1 s clip: {agree}")
+    flips = any(v < 1.0 for v in agree.values())
+
+    def pinned():
+        return fixed_indices(codes["cpu"].to(dev), vq["cpu"].to(dev)) \
+            if flips else contextlib.nullcontext()
+
+    if flips:
+        log("  an index flipped: the card's steps take the CPU's indices")
+    res = {"index_agreement": agree}
+    _, nac32_cpu, _ = build_nac_train_step(ncfg, ccfg, gcfg,
+                                           learning_rate=TRAIN_LR,
+                                           device="cpu")
+    _, slp32_cpu, _ = build_slp_train_step(scfg, ccfg, bcfg,
+                                           learning_rate=TRAIN_LR,
+                                           device="cpu")
+    byt5_cpu = on("cpu", byt5_gpu)
+    for label, step_gpu, step_cpu, state, fz_gpu, fz_cpu, batch, key in (
+            ("NAC", nac_step, nac32_cpu, nac_state, nac_frozen,
+             {"codec": params_cpu.codec, "gpt2": params_cpu.gpt2}, nac_clip,
+             "total_loss"),
+            ("SLP", slp_step, slp32_cpu, slp_state, slp_frozen,
+             {"codec": params_cpu.codec, "byt5": byt5_cpu}, slp_clip,
+             "loss")):
+        state_cpu = on("cpu", state)
+        with pinned():
+            runs = [step_gpu(state, fz_gpu, batch) for _ in range(2)]
+        want, wm = step_cpu(state_cpu, fz_cpu, batch)
+        res[label] = compare_states(torch, np, label, runs[0][0], want,
+                                    runs[0][1], wm, key)
+        if not (torch.equal(ravel_tree(runs[0][0]["params"])[0],
+                            ravel_tree(runs[1][0]["params"])[0])
+                and torch.equal(runs[0][0]["opt_state"][0]["nu"],
+                                runs[1][0]["opt_state"][0]["nu"])
+                and all(torch.equal(runs[0][1][k], runs[1][1][k])
+                        for k in runs[0][1])):
+            fail(f"{label}: two steps from one state differ")
+        del runs, want
+    log("  determinism: two NAC and two SLP steps from one state equal bit "
+        "for bit")
+    out["card_vs_cpu"] = res
+    del byt5_cpu
+
+    # ---- the corpus, the batches and the latent cache ----
+    tmp = ROOT / ".chip_smoke_tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    try:
+        corpus = tmp / "mls"
+        opus = nl.opus_available()
+        paths = write_corpus(np, corpus, opus)
+        routes = {}
+        for p in paths:
+            routes[decoder_for(p)] = routes.get(decoder_for(p), 0) + 1
+        log(f"  corpus: {len(paths)} clips ({'with' if opus else 'without'} "
+            f"libopus: real Ogg-Opus {'beside' if opus else 'missing from'} "
+            f"the WAV bytes), decoded by {routes}")
+        out["decoders"] = routes
+        buckets = mls.default_buckets()
+        ds = mls.MLSDataset(str(corpus), ByT5Tokenizer(), 64,
+                            tokenizer_name="byt5")
+        items = {tuple(ds[i]["text_ids"]): (ds[i]["audio"],
+                                             int(ds[i]["label"]))
+                 for i in range(len(ds))}
+        py = by_text(np, mls.batches(ds, 2, buckets=buckets, seed=1))
+        native = by_text(np, mls.batches_native(ds, 2, buckets=buckets,
+                                                workers=2, seed=1))
+        for name, got in (("batches", py), ("batches_native", native)):
+            if sorted(got) != sorted(items) or not all(
+                    np.array_equal(got[k][0], items[k][0])
+                    and got[k][1] == items[k][1] for k in items):
+                fail(f"{name} disagrees with MLSDataset's items")
+        log(f"  MLSDataset, batches and batches_native: the same "
+            f"{len(items)} items (samples, labels, text)")
+
+        frozen = {"codec": params.codec,
+                  "embedding_head": params.embedding_head}
+        cache = str(tmp / "latents")
+        t0 = time.perf_counter()
+        index = lat_mod.precompute(ds, frozen, ccfg, cache_dir=cache,
+                                   batch_size=2, buckets=buckets, device=dev)
+        pre_s = time.perf_counter() - t0
+        encode = lat_mod.make_encode_fn(ccfg, "bfloat16")
+        same_size, single = [], []
+        for b in lat_mod.latent_batches(cache, ds, 2, seed=2):
+            members = [ds[i] for i in b["indices"]]
+            col = mls.collate(members, buckets)
+            direct = encode(frozen, torch.from_numpy(col["audio"]).to(dev),
+                            torch.from_numpy(col["padding_mask"]).to(dev))
+            same_size.append(np.array_equal(b["latents"],
+                                            direct.cpu().numpy()))
+            for r in range(len(members)):
+                one = encode(frozen,
+                             torch.from_numpy(col["audio"][r:r + 1]).to(dev),
+                             torch.from_numpy(
+                                 col["padding_mask"][r:r + 1]).to(dev))
+                d = one.cpu().numpy()[0]
+                frames_equal = (d == b["latents"][r]).all(axis=-1).mean()
+                single.append((float(frames_equal),
+                               float(np.abs(d - b["latents"][r]).max())))
+        log(f"  latent cache: precompute (bf16, on the card) {pre_s:.1f} s, "
+            f"buckets {index['buckets']}; each cached batch against a direct "
+            f"encode of its members at the same size (B=2): "
+            f"{'bitwise equal' if all(same_size) else same_size}; against "
+            f"B=1 encodes: frames equal "
+            f"{min(f for f, _ in single):.4f}-{max(f for f, _ in single):.4f}"
+            f", max|err| {max(e for _, e in single):.3e}")
+        if not all(same_size):
+            fail("latent cache: a cached batch differs from a direct encode "
+                 "of its members at the same size")
+        out["latent_cache"] = {"precompute_s": pre_s,
+                               "buckets": index["buckets"],
+                               "same_size_bitwise": all(same_size),
+                               "b1_frames_equal_and_max_err": single}
+
+        # ---- the three CLIs, as subprocesses on the card ----
+        def cli(which, *args):
+            cmd = [sys.executable, "-m",
+                   f"ditto_tts_tpu_torch.scripts.train_{which}",
+                   "--train-path", str(corpus), "--device", dev.type,
+                   "--batch-size", "2", "--epochs", "1", *args]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=ROOT, capture_output=True,
+                                  text=True, timeout=300)
+            dt = time.perf_counter() - t0
+            if proc.returncode != 0:
+                fail(f"train_{which} {args}: rc {proc.returncode}\n"
+                     f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+            return proc.stdout, dt
+
+        clis = {}
+        nac_dir, slp_dir, dit_dir = (str(tmp / n) for n in ("nac", "slp",
+                                                            "dit"))
+        _, clis["train_nac"] = cli("nac", "--checkpoint-dir", nac_dir)
+        _, clis["train_slp"] = cli("slp", "--checkpoint-dir", slp_dir)
+        dit_args = ("--checkpoint-dir", dit_dir, "--latent-cache",
+                    str(tmp / "cli_latents"), "--nac-checkpoint",
+                    os.path.join(nac_dir, "NAC_final.npz"), "--layers", "1",
+                    "--heads", "12")
+        _, clis["train_ditto"] = cli("ditto", *dit_args)
+        # the last --epochs wins: a second epoch, resumed from the first
+        out2, clis["train_ditto resume"] = cli("ditto", *dit_args,
+                                               "--epochs", "2")
+        files = {d: sorted(os.listdir(p)) for d, p in
+                 (("nac", nac_dir), ("slp", slp_dir), ("dit", dit_dir))}
+        expect = {"nac": ["NAC_final.json", "NAC_final.npz"],
+                  "slp": ["SLP_final.json", "SLP_final.npz"],
+                  "dit": sorted(f"DiTTO_{t}.{e}" for t in
+                                ("epoch_1", "epoch_2", "final")
+                                for e in ("json", "npz"))}
+        shard = tmp / "cli_latents" / "train_shard0of1"
+        if files != expect or "resumed from" not in out2 or not (
+                shard / "index.json").exists():
+            fail(f"training CLIs: files {files}, resume output "
+                 f"{out2[-1500:]}")
+        log(f"  CLIs on the card: {', '.join(f'{k} {v:.1f} s' for k, v in clis.items())}; "
+            f"files {files}; the second train_ditto resumed from epoch 1")
+        out["clis"] = {"seconds": clis, "files": files}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 11: {out['phase_s']:.1f} s")
+    rec["corpus_training"] = out
+    return {"nac_step": {k: v // CORPUS_TIMED
+                         for k, v in out["nac"]["launches"].items()},
+            "slp_step": {k: v // CORPUS_TIMED
+                         for k, v in out["slp"]["launches"].items()}}
+
+
+# --------------------------------------------------------------------------
 
 def main() -> None:
     if not (ROOT / "ditto_tts_tpu_torch" / "__init__.py").exists():
@@ -1676,11 +2161,17 @@ def main() -> None:
         "and eval; B in the frozen encode)")
     train_launches = train_phase(torch, np, params, params_cpu, card, rec)
 
+    log("== 11. NAC and SLP training, the data layer and the training CLIs")
+    corpus_launches = corpus_phase(torch, np, params, params_cpu,
+                                   slp[1].byt5, card, rec)
+
     # launches per 10 s request (fused_ncl: per forward of its two stages;
-    # train_step: per step of phase 10's audio leg)
+    # train_step: per step of phase 10's audio leg; nac_step, slp_step: per
+    # step of phase 11)
     paths = {"default": DEFAULT_PATH, "fused_pallas": FUSED_PALLAS_PATH,
              "fused_ncl": FUSED_NCL_PATH, "slp": DEFAULT_PATH,
-             "ddim": DEFAULT_PATH, "train_step": train_launches}
+             "ddim": DEFAULT_PATH, "train_step": train_launches,
+             **corpus_launches}
     sources = {
         "attention": "ditto_tts_tpu/ops/attention.py:95 pallas_attention "
                      "(#1) + :173 pallas_attention_packed (#2)",

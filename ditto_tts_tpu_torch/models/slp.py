@@ -13,11 +13,24 @@ class + min_seconds, times the codec frame rate.
 
 from __future__ import annotations
 
+import torch
+import torch.nn.functional as F
+
 from ..codec import encodec as codec_mod
 from ..config import CodecConfig, SLPConfig
 from ..nn.core import dense
 from ..nn.transformer import transformer_decoder
+from ..params import fill_spec, slp_spec, tree_map
 from ..text import byt5 as byt5_mod
+
+
+def init_slp_trainable(cfg: SLPConfig, codebook_size: int = 1024,
+                       seed: int = 0):
+    """CPU fp32 ``{"embedding_head", "decoder", "length_predictor"}`` with
+    the JAX init trees' structure, shapes and distributions, from a numpy
+    seed (``params.slp_spec``)."""
+    return tree_map(torch.from_numpy,
+                    fill_spec(slp_spec(cfg, codebook_size), seed))
 
 
 def slp_forward(trainable, byt5_params, codec_params, cfg: SLPConfig,
@@ -27,7 +40,8 @@ def slp_forward(trainable, byt5_params, codec_params, cfg: SLPConfig,
     z_text = byt5_mod.byt5_encode(byt5_params, byt5_cfg, text_ids, text_mask)
     codes = codec_mod.codec_encode(codec_params, codec_cfg, audio,
                                    padding_mask, bandwidth_kbps=1.5)
-    z_audio = trainable["embedding_head"]["weight"][codes]  # [B, nq, T, D]
+    # F.embedding: a deterministic backward (models/nac.py)
+    z_audio = F.embedding(codes, trainable["embedding_head"]["weight"])
     b, nq, t, d = z_audio.shape
     z_audio = z_audio.reshape(b, nq * t, d)
     h = transformer_decoder(trainable["decoder"], cfg.num_heads, z_audio,

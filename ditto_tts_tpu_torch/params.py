@@ -10,10 +10,12 @@ seed, for runs that have no JAX (the card's machine); ``init_slp_params``
 does the same for the SLP chain's ByT5 and SLP trees, in a draw of its own
 so the six serving fields keep their values.
 
-The DiTTo train state is the JAX one, ``{"params", "opt_state", "step"}``
+The train states are the JAX ones, ``{"params", "opt_state", "step"}``
 with the flat AdamW state ``[{"count", "mu", "nu"}]`` (optax's empty states
 hold no arrays): ``new_train_state`` wraps parameters in one,
-``init_dit_train_state`` draws one from a numpy seed,
+``init_dit_train_state``, ``init_nac_train_state`` and
+``init_slp_train_state`` draw one from a numpy seed, ``init_nac_frozen``
+and ``init_slp_frozen`` the frozen trees of the NAC and SLP steps,
 ``from_jax_train_state`` and ``train_state_to_numpy`` cross it.
 ``ravel_tree`` is JAX's ``ravel_pytree`` order (sorted dict keys, list
 indices), the layout of the flat ``mu`` and ``nu``.
@@ -29,8 +31,9 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .config import (ByT5Config, CodecConfig, DiTConfig, PipelineConfig,
-                     SLPConfig, VocoderConfig, byt5_small_config)
+from .config import (ByT5Config, CodecConfig, DiTConfig, GPT2Config,
+                     NACConfig, PipelineConfig, SLPConfig, VocoderConfig,
+                     byt5_small_config)
 
 FIELDS = ("dit", "codec", "gpt2", "embedding_head", "vector_quantizer",
           "vocoder")
@@ -271,19 +274,30 @@ def _vocoder_spec(cfg: VocoderConfig):
             "conv_post": {"weight": _conv(1, ch, 7)["weight"]}}
 
 
+def vq_spec(codebook_size: int, latent_dim: int):
+    """codec/rvq.py init_vector_quantizer: a Xavier-uniform codebook."""
+    return {"codebook": _u((codebook_size, latent_dim),
+                           math.sqrt(6.0 / (codebook_size + latent_dim)))}
+
+
+def nac_trainable_spec(cfg: NACConfig):
+    """models/nac.py init_nac_trainable: an N(0, 1) embedding head and the
+    VQ codebook, both [codebook_size, hidden_size]."""
+    return {"embedding_head": {"weight": _n(
+                (cfg.codebook_size, cfg.hidden_size), 1.0)},
+            "vector_quantizer": vq_spec(cfg.codebook_size, cfg.hidden_size)}
+
+
 def generator_spec(cfg: PipelineConfig, *, gpt2_vocab: int = 50257,
                    gpt2_positions: int = 1024, gpt2_layers: int = 12):
     """Leaf specs of the JAX init trees (GPT2 at GPT2Config's defaults and
     the NAC width, unless given)."""
-    h = cfg.nac.hidden_size
     return {
         "dit": _dit_spec(cfg.dit),
         "codec": _codec_spec(cfg.codec),
-        "gpt2": _gpt2_spec(h, gpt2_vocab, gpt2_positions, gpt2_layers),
-        "embedding_head": {"weight": _n((cfg.nac.codebook_size, h), 1.0)},
-        "vector_quantizer": {"codebook": _u(
-            (cfg.nac.codebook_size, h),
-            math.sqrt(6.0 / (cfg.nac.codebook_size + h)))},
+        "gpt2": _gpt2_spec(cfg.nac.hidden_size, gpt2_vocab, gpt2_positions,
+                           gpt2_layers),
+        **nac_trainable_spec(cfg.nac),
         "vocoder": _vocoder_spec(cfg.vocoder),
     }
 
@@ -365,7 +379,7 @@ def init_slp_params(cfg: PipelineConfig, seed: int = 1,
 
 
 # ---------------------------------------------------------------------------
-# the DiTTo train state
+# train states and the frozen trees of the training steps
 # ---------------------------------------------------------------------------
 
 def zero_adamw_state(params, flat: bool = True):
@@ -397,10 +411,52 @@ def init_dit_train_state(cfg: DiTConfig, seed: int = 0,
     """A fresh fp32 DiTTo train state on ``device`` (``cuda`` unless the
     caller passes ``"cpu"``): the JAX ``init_ditto`` tree's structure,
     shapes and distributions from a numpy seed."""
+    return new_train_state(_draw(_dit_spec(cfg), seed, device), flat_opt)
+
+
+def _draw(spec, seed: int, device):
+    """``fill_spec(spec, seed)`` as tensors on ``device``, resolved by
+    ``resolve_device`` before anything is drawn."""
     dev = resolve_device(device)
-    return new_train_state(
-        tree_map(lambda a: torch.from_numpy(a).to(dev),
-                 fill_spec(_dit_spec(cfg), seed)), flat_opt)
+    return tree_map(lambda a: torch.from_numpy(a).to(dev),
+                    fill_spec(spec, seed))
+
+
+def init_nac_train_state(cfg: NACConfig, seed: int = 0,
+                         device=None) -> Dict:
+    """A fresh NAC train state (embedding head and VQ codebook, flat AdamW)
+    on ``device`` (``cuda`` unless the caller passes ``"cpu"``), drawn from
+    a numpy seed as ``models.nac.init_nac_trainable``."""
+    return new_train_state(_draw(nac_trainable_spec(cfg), seed, device))
+
+
+def init_slp_train_state(cfg: SLPConfig, codebook_size: int = 1024,
+                         seed: int = 0, device=None) -> Dict:
+    """A fresh SLP train state (embedding head, decoder, length predictor,
+    flat AdamW) on ``device``, drawn as ``models.slp.init_slp_trainable``."""
+    return new_train_state(_draw(slp_spec(cfg, codebook_size), seed,
+                                 device))
+
+
+def init_nac_frozen(codec_cfg: CodecConfig, gpt2_cfg: GPT2Config,
+                    seed: int = 0, device=None) -> Dict:
+    """The frozen trees the NAC step reads, ``{"codec", "gpt2"}`` (the whole
+    GPT2 stack; the DiTTo step reads the same codec and GPT2's ``wte``), on
+    ``device``: the JAX init trees' structure, shapes and distributions,
+    one numpy draw."""
+    return _draw({"codec": _codec_spec(codec_cfg),
+                  "gpt2": _gpt2_spec(gpt2_cfg.n_embd, gpt2_cfg.vocab_size,
+                                     gpt2_cfg.n_positions, gpt2_cfg.n_layer)},
+                 seed, device)
+
+
+def init_slp_frozen(codec_cfg: CodecConfig,
+                    byt5_cfg: Optional[ByT5Config] = None, seed: int = 0,
+                    device=None) -> Dict:
+    """The frozen trees the SLP step reads, ``{"byt5", "codec"}`` (ByT5-small
+    unless given), on ``device``, one numpy draw."""
+    return _draw({"byt5": byt5_spec(byt5_cfg or byt5_small_config()),
+                  "codec": _codec_spec(codec_cfg)}, seed, device)
 
 
 def from_jax_train_state(tree: Mapping[str, Any]) -> Dict:

@@ -1,29 +1,39 @@
-"""The DiTTo train step (the JAX ``train/steps.py``: ``make_adamw`` and
-``build_ditto_train_step``).
+"""The train steps of the three models (the JAX ``train/steps.py``:
+``make_adamw``, ``build_ditto_train_step``, ``build_nac_train_step`` and
+``build_slp_train_step``).
 
-``build_ditto_train_step`` returns ``(init_state, step_fn, eval_fn)``:
+Each builder returns ``(init_state, step_fn, eval_fn)`` and runs on
+``device`` (``cuda`` unless the caller passes ``"cpu"``): ``init_state``
+puts the trainable tree there, ``step_fn(state, frozen, batch,
+generator=None)`` and ``eval_fn`` move the batch (tensors or numpy
+arrays, as ``data/`` yields them) there and raise on a state or frozen
+tree that lies elsewhere. ``step_fn`` differentiates the loss with
+respect to the trainable leaves (zeros for a leaf the loss does not read,
+as ``jax.grad`` gives), applies AdamW and adds one to ``step``;
+``eval_fn`` returns the metrics without a step. The states are JAX's
+(``params.py``), so checkpoints cross.
 
-  * the frozen encode under ``torch.no_grad()``: a batch's ``"latents"``
+  * DiTTo (``build_ditto_train_step``): the frozen encode under ``torch.no_grad()``: a batch's ``"latents"``
     ([B, T, H], channel-meaned) as they are, else the audio through the
     EnCodec encoder at 1.5 kbps (kernel B on the card, in ``encode_dtype``)
     and the embedding head, channel-meaned; latents cut to GPT2's
     ``n_positions`` frames, text ids to the latents' length, then GPT2's
-    ``wte``;
-  * the loss: t ~ U[0, diffusion_steps), noise, ``q_sample`` (the
+    ``wte``. The loss: t ~ U[0, diffusion_steps), noise, ``q_sample`` (the
     reference's inverted schedule under ``ref_compat``), the DiT with
     cross-attention dropout from the step's generator, and the MSE against
-    the eps / v / x0 target;
-  * ``step_fn``: the loss's gradient, AdamW, ``step + 1``; ``eval_fn``: the
-    loss alone, without gradients, dropout on as in JAX (whose
-    ``eval_fn`` passes the key too).
-
-The step runs on ``device`` (``cuda`` unless the caller passes ``"cpu"``):
-``init_state`` puts the parameters there, ``step_fn`` and ``eval_fn`` move
-the batch there and raise on a state or frozen tree that lies elsewhere.
-A ``torch.Generator`` on that device stands in for JAX's key: t,
-then the noise, then the dropout masks, as ``jax.random.split(key, 3)``
-orders them; ``t=`` and ``noise=`` replace the first two draws (parity
-runs). The state is JAX's (``params.py``), so checkpoints cross.
+    the eps / v / x0 target; ``eval_fn`` keeps dropout on, as JAX's (whose
+    ``eval_fn`` passes the key too). A ``torch.Generator`` on the device
+    stands in for JAX's key: t, then the noise, then the dropout masks, as
+    ``jax.random.split(key, 3)`` orders them; ``t=`` and ``noise=`` replace
+    the first two draws (parity runs).
+  * NAC (``build_nac_train_step``): ``models.nac.nac_forward`` (frozen
+    codec and GPT2; the straight-through VQ, or quirk #4 under
+    ``ref_compat``); the loss is ``total_loss``, the metrics every scalar
+    it returns. The generator is not read (nor is JAX's key).
+  * SLP (``build_slp_train_step``): ``models.slp.slp_forward`` (frozen
+    codec and ByT5), fp32 log-softmax cross-entropy over the duration
+    classes; metrics ``loss`` and ``accuracy`` (the first index wins an
+    argmax tie, as ``jnp.argmax``). The generator is not read.
 
 AdamW is optax's ``adamw`` (the reference's torch.optim.AdamW defaults:
 betas (0.9, 0.999), eps 1e-8, weight decay 1e-6, decay decoupled and
@@ -40,10 +50,12 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .. import resolve_device
-from ..config import CodecConfig, DiTConfig, GPT2Config
+from ..config import (ByT5Config, CodecConfig, DiTConfig, GPT2Config,
+                      NACConfig, SLPConfig)
 from ..diffusion.schedule import NoiseSchedule, q_sample
 from ..models import dit as dit_mod
 from ..models import nac as nac_mod
+from ..models import slp as slp_mod
 from ..params import (new_train_state, ravel_tree, tree_leaves, tree_map,
                       tree_unflatten, zero_adamw_state)
 from ..text import gpt2 as gpt2_mod
@@ -102,6 +114,37 @@ def make_adamw(learning_rate: float, weight_decay: float = 1e-6,
     return AdamW(learning_rate, weight_decay, flat)
 
 
+def _placed(dev: torch.device, state, frozen, batch) -> Dict:
+    """The batch's tensors or numpy arrays as tensors on ``dev``; raises if
+    the state or the frozen tree lies elsewhere."""
+    for what, tree in (("state", state), ("frozen", frozen)):
+        for path, leaf in tree_leaves(tree):
+            if leaf.device.type != dev.type:
+                raise ValueError(
+                    f"the train step runs on {dev.type}, but {what}"
+                    f"{path} lies on {leaf.device}")
+    return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+
+def _apply_gradient(opt: AdamW, state, loss_fn) -> Tuple[Dict, Dict]:
+    """One optimizer step: ``loss_fn(params) -> (loss, metrics)`` is
+    differentiated with respect to every parameter leaf (zeros for a leaf
+    it does not read, as ``jax.grad`` gives them), AdamW updates the
+    state, ``step`` adds one; the metrics come back detached."""
+    params = tree_map(lambda p: p.detach().requires_grad_(), state["params"])
+    leaves = [leaf for _, leaf in tree_leaves(params)]
+    with torch.enable_grad():
+        loss, metrics = loss_fn(params)
+        grad_leaves = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                          materialize_grads=True)
+    new_params, opt_state = opt.update(
+        tree_unflatten(params, grad_leaves), state["opt_state"],
+        tree_map(torch.detach, params))
+    return ({"params": new_params, "opt_state": opt_state,
+             "step": state["step"] + 1},
+            {k: v.detach() for k, v in metrics.items()})
+
+
 def build_ditto_train_step(dit_cfg: DiTConfig, codec_cfg: CodecConfig,
                            gpt2_cfg: GPT2Config, *,
                            learning_rate: Optional[float] = None,
@@ -138,17 +181,6 @@ def build_ditto_train_step(dit_cfg: DiTConfig, codec_cfg: CodecConfig,
     def init_state(dit_params) -> Dict:
         return new_train_state(tree_map(lambda p: p.to(dev), dit_params),
                                flat_opt)
-
-    def placed(state, frozen, batch) -> Dict:
-        """The batch on ``dev``; raises if the state or the frozen tree
-        lies elsewhere."""
-        for what, tree in (("state", state), ("frozen", frozen)):
-            for path, leaf in tree_leaves(tree):
-                if leaf.device.type != dev.type:
-                    raise ValueError(
-                        f"the train step runs on {dev.type}, but {what}"
-                        f"{path} lies on {leaf.device}")
-        return {k: v.to(dev) for k, v in batch.items()}
 
     @torch.no_grad()
     def encode_batch(frozen, batch):
@@ -193,29 +225,99 @@ def build_ditto_train_step(dit_cfg: DiTConfig, codec_cfg: CodecConfig,
 
     def step_fn(state, frozen, batch, generator=None, *, t=None,
                 noise=None) -> Tuple[Dict, Dict]:
-        batch = placed(state, frozen, batch)
+        batch = _placed(dev, state, frozen, batch)
         latents, text_emb = encode_batch(frozen, batch)
-        params = tree_map(lambda p: p.detach().requires_grad_(),
-                          state["params"])
-        leaves = [leaf for _, leaf in tree_leaves(params)]
-        with torch.enable_grad():
+
+        def loss_of(params):
+            # ref_compat's self-attention out_proj is not read: zeros
             loss = loss_fn(params, latents, text_emb, generator, t, noise)
-            # parameters the loss does not read (ref_compat's self-attention
-            # out_proj) get zeros, as jax.grad gives them
-            grad_leaves = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                              materialize_grads=True)
-        grads = tree_unflatten(params, grad_leaves)
-        new_params, opt_state = opt.update(
-            grads, state["opt_state"], tree_map(torch.detach, params))
-        return ({"params": new_params, "opt_state": opt_state,
-                 "step": state["step"] + 1}, {"loss": loss.detach()})
+            return loss, {"loss": loss}
+
+        return _apply_gradient(opt, state, loss_of)
 
     @torch.no_grad()
     def eval_fn(state, frozen, batch, generator=None, *, t=None,
                 noise=None) -> Dict:
-        batch = placed(state, frozen, batch)
+        batch = _placed(dev, state, frozen, batch)
         latents, text_emb = encode_batch(frozen, batch)
         return {"loss": loss_fn(state["params"], latents, text_emb,
                                 generator, t, noise)}
 
     return init_state, step_fn, eval_fn
+
+
+def _step_fns(dev: torch.device, opt: AdamW, loss_fn):
+    """(init_state, step_fn, eval_fn) around ``loss_fn(trainable, frozen,
+    batch) -> (loss, metrics)``: the NAC's and the SLP's shape, whose
+    steps draw nothing (the generator is not read)."""
+    def init_state(trainable) -> Dict:
+        return new_train_state(tree_map(lambda p: p.to(dev), trainable))
+
+    def step_fn(state, frozen, batch, generator=None) -> Tuple[Dict, Dict]:
+        batch = _placed(dev, state, frozen, batch)
+        return _apply_gradient(opt, state,
+                               lambda p: loss_fn(p, frozen, batch))
+
+    @torch.no_grad()
+    def eval_fn(state, frozen, batch, generator=None) -> Dict:
+        batch = _placed(dev, state, frozen, batch)
+        return loss_fn(state["params"], frozen, batch)[1]
+
+    return init_state, step_fn, eval_fn
+
+
+def build_nac_train_step(nac_cfg: NACConfig, codec_cfg: CodecConfig,
+                         gpt2_cfg: GPT2Config, *, ref_compat: bool = False,
+                         learning_rate: Optional[float] = None,
+                         weight_decay: float = 1e-6, device=None):
+    """(init_state, step_fn, eval_fn) for NAC training:
+
+      init_state(trainable) -> {"params", "opt_state", "step"}
+      step_fn(state, frozen, batch, generator=None) -> (new_state, metrics)
+      eval_fn(state, frozen, batch, generator=None) -> metrics
+
+    ``trainable`` holds ``embedding_head`` and ``vector_quantizer``,
+    ``frozen`` ``codec`` and ``gpt2`` (the whole stack); ``batch`` holds
+    ``audio``, ``text_ids``, ``text_mask`` and an optional
+    ``padding_mask``. The metrics: ``total_loss``, ``lm_loss``,
+    ``reconstruction_loss``, and without ``ref_compat`` ``codebook_loss``
+    and ``commitment_loss``."""
+    lr = learning_rate if learning_rate is not None else nac_cfg.learning_rate
+
+    def loss_fn(trainable, frozen, batch):
+        out = nac_mod.nac_forward(
+            trainable, frozen["codec"], frozen["gpt2"], nac_cfg, codec_cfg,
+            gpt2_cfg, batch["text_ids"], batch["text_mask"], batch["audio"],
+            batch.get("padding_mask"), ref_compat=ref_compat)
+        return out["total_loss"], {k: v for k, v in out.items()
+                                   if v.dim() == 0}
+
+    return _step_fns(resolve_device(device), make_adamw(lr, weight_decay),
+                     loss_fn)
+
+
+def build_slp_train_step(slp_cfg: SLPConfig, codec_cfg: CodecConfig,
+                         byt5_cfg: ByT5Config, *,
+                         learning_rate: Optional[float] = None,
+                         weight_decay: float = 1e-6, device=None):
+    """(init_state, step_fn, eval_fn) for SLP training, with the signatures
+    of ``build_nac_train_step``. ``trainable`` holds ``embedding_head``,
+    ``decoder`` and ``length_predictor``, ``frozen`` ``codec`` and
+    ``byt5``; ``batch`` holds ``audio``, ``text_ids``, ``text_mask``,
+    ``label`` (the duration class) and an optional ``padding_mask``. The
+    metrics: ``loss`` and ``accuracy``."""
+    lr = learning_rate if learning_rate is not None else slp_cfg.learning_rate
+
+    def loss_fn(trainable, frozen, batch):
+        logits = slp_mod.slp_forward(
+            trainable, frozen["byt5"], frozen["codec"], slp_cfg, byt5_cfg,
+            codec_cfg, batch["text_ids"], batch["text_mask"], batch["audio"],
+            batch.get("padding_mask"))
+        labels = batch["label"].long()
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        loss = -logp.gather(-1, labels[:, None])[:, 0].mean()
+        acc = (logits.argmax(dim=-1) == labels).float().mean()
+        return loss, {"loss": loss, "accuracy": acc}
+
+    return _step_fns(resolve_device(device), make_adamw(lr, weight_decay),
+                     loss_fn)

@@ -114,3 +114,32 @@ def np_of(x):
 
 def assert_close(got, want, *, rtol, atol):
     np.testing.assert_allclose(np_of(got), np_of(want), rtol=rtol, atol=atol)
+
+
+def varied_codebooks(codec, audio, n_codes=4, tries=300):
+    """``codec`` (a numpy tree) with ``n_codes`` entries of every RVQ
+    codebook replaced by the random encoder's latents at frames of
+    ``audio`` [B, 1, L]. At the tiny configs the random SEANet's latents
+    barely move along time, so the N(0, 1) codebooks give every frame one
+    code and the paths after the embedding head see one row. The frames
+    are the draw (of ``tries``) whose nearest-entry scores have the widest
+    smallest margin (~1e-3 of their scale), so no code is a near tie."""
+    from ditto_tts_tpu.codec import seanet
+    lat = np.asarray(seanet.encode(
+        jax.tree_util.tree_map(jnp.asarray, codec["encoder"]), CODEC_CFG,
+        jnp.asarray(audio)))                                # [B, D, T]
+    frames = lat.transpose(0, 2, 1).reshape(-1, lat.shape[1])
+    books = np.array(codec["quantizer"]["codebooks"], np.float32)
+    slots = np.linspace(0, books.shape[1] - 1, n_codes).astype(int)
+    rng = np.random.default_rng(1)
+    best, best_margin = None, -1.0
+    for _ in range(tries):
+        cb = books[0].astype(np.float64)
+        cb[slots] = frames[rng.choice(len(frames), n_codes, replace=False)]
+        scores = 2 * frames @ cb.T - (cb ** 2).sum(axis=1)
+        top = np.sort(scores, axis=1)
+        margin = (top[:, -1] - top[:, -2]).min() / np.abs(scores).max()
+        if margin > best_margin:
+            best, best_margin = cb[slots], margin
+    books[:, slots] = best
+    return dict(codec, quantizer={"codebooks": books})

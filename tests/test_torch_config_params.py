@@ -244,7 +244,15 @@ def test_import_check_covers_the_training_modules():
     assert {"ditto_tts_tpu_torch/models/nac.py",
             "ditto_tts_tpu_torch/train/steps.py",
             "ditto_tts_tpu_torch/train/checkpoint.py",
-            "ditto_tts_tpu_torch/train/trainer.py"} <= names
+            "ditto_tts_tpu_torch/train/trainer.py",
+            "ditto_tts_tpu_torch/data/mls.py",
+            "ditto_tts_tpu_torch/data/latents.py",
+            "ditto_tts_tpu_torch/data/native_loader.py",
+            "ditto_tts_tpu_torch/data/processing.py",
+            "ditto_tts_tpu_torch/scripts/_common.py",
+            "ditto_tts_tpu_torch/scripts/train_ditto.py",
+            "ditto_tts_tpu_torch/utils/weights.py",
+            "ditto_tts_tpu_torch/assets/__init__.py"} <= names
 
 
 def test_gpt2_config_equals_jax():
@@ -270,16 +278,39 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
         with pytest.raises(RuntimeError, match="CUDA"):
             build(tc)
         build(tc, device="cpu")
-    # training: the step builder and the seeded train state
-    from ditto_tts_tpu_torch.params import init_dit_train_state
-    from ditto_tts_tpu_torch.train.steps import build_ditto_train_step
+    # training: the step builders, the seeded train states, the frozen
+    # trees, the latent precompute and the CLIs
+    from ditto_tts_tpu_torch.data.latents import precompute
+    from ditto_tts_tpu_torch.params import (
+        init_dit_train_state, init_nac_frozen, init_nac_train_state,
+        init_slp_frozen, init_slp_train_state)
+    from ditto_tts_tpu_torch.scripts import train_ditto, train_nac, train_slp
+    from ditto_tts_tpu_torch.train.steps import (
+        build_ditto_train_step, build_nac_train_step, build_slp_train_step)
     dit = tc.dit.replace(num_layers=1)
+    gpt2 = tconfig.GPT2Config(vocab_size=32, n_positions=64,
+                              n_embd=tc.nac.hidden_size, n_layer=1)
+    byt5 = tconfig.ByT5Config(vocab_size=40, d_model=16, d_kv=4, d_ff=32,
+                              num_layers=1, num_heads=2)
     for build in (lambda **kw: build_ditto_train_step(
                       dit, tc.codec, tconfig.GPT2Config(), **kw),
-                  lambda **kw: init_dit_train_state(dit, **kw)):
+                  lambda **kw: init_dit_train_state(dit, **kw),
+                  lambda **kw: build_nac_train_step(tc.nac, tc.codec, gpt2,
+                                                    **kw),
+                  lambda **kw: build_slp_train_step(tc.slp, tc.codec, byt5,
+                                                    **kw),
+                  lambda **kw: init_nac_train_state(tc.nac, **kw),
+                  lambda **kw: init_slp_train_state(tc.slp, 16, **kw),
+                  lambda **kw: init_nac_frozen(tc.codec, gpt2, **kw),
+                  lambda **kw: init_slp_frozen(tc.codec, byt5, **kw)):
         with pytest.raises(RuntimeError, match="CUDA"):
             build()
         build(device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        precompute(None, None, tc.codec, cache_dir="unused")
+    for cli in (train_nac, train_slp, train_ditto):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(["--train-path", "unused"])
 
 
 def test_kernel_wrappers_have_no_cpu_fallback():
