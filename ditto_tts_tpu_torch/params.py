@@ -438,25 +438,42 @@ def init_slp_train_state(cfg: SLPConfig, codebook_size: int = 1024,
                                  device))
 
 
+def _frozen(specs: Dict, given: Optional[Mapping[str, Any]], seed: int,
+            device) -> Dict:
+    """The trees of ``specs`` on ``device``: those in ``given`` (imported
+    weights) moved there, the rest drawn by one ``fill_spec`` over their
+    specs alone."""
+    given = dict(given or {})
+    dev = resolve_device(device)
+    drawn = _draw({k: v for k, v in specs.items() if k not in given}, seed,
+                  dev)
+    return {k: tree_map(lambda t: t.to(dev), given[k]) if k in given
+            else drawn[k] for k in sorted(specs)}
+
+
 def init_nac_frozen(codec_cfg: CodecConfig, gpt2_cfg: GPT2Config,
-                    seed: int = 0, device=None) -> Dict:
+                    seed: int = 0, device=None,
+                    given: Optional[Mapping[str, Any]] = None) -> Dict:
     """The frozen trees the NAC step reads, ``{"codec", "gpt2"}`` (the whole
     GPT2 stack; the DiTTo step reads the same codec and GPT2's ``wte``), on
-    ``device``: the JAX init trees' structure, shapes and distributions,
-    one numpy draw."""
-    return _draw({"codec": _codec_spec(codec_cfg),
-                  "gpt2": _gpt2_spec(gpt2_cfg.n_embd, gpt2_cfg.vocab_size,
-                                     gpt2_cfg.n_positions, gpt2_cfg.n_layer)},
-                 seed, device)
+    ``device``: those in ``given`` as they are, the others drawn with the
+    JAX init trees' structure, shapes and distributions, one numpy draw."""
+    return _frozen({"codec": _codec_spec(codec_cfg),
+                    "gpt2": _gpt2_spec(gpt2_cfg.n_embd, gpt2_cfg.vocab_size,
+                                       gpt2_cfg.n_positions,
+                                       gpt2_cfg.n_layer)},
+                   given, seed, device)
 
 
 def init_slp_frozen(codec_cfg: CodecConfig,
                     byt5_cfg: Optional[ByT5Config] = None, seed: int = 0,
-                    device=None) -> Dict:
+                    device=None,
+                    given: Optional[Mapping[str, Any]] = None) -> Dict:
     """The frozen trees the SLP step reads, ``{"byt5", "codec"}`` (ByT5-small
-    unless given), on ``device``, one numpy draw."""
-    return _draw({"byt5": byt5_spec(byt5_cfg or byt5_small_config()),
-                  "codec": _codec_spec(codec_cfg)}, seed, device)
+    unless given), on ``device``: those in ``given`` as they are, the
+    others drawn, one numpy draw."""
+    return _frozen({"byt5": byt5_spec(byt5_cfg or byt5_small_config()),
+                    "codec": _codec_spec(codec_cfg)}, given, seed, device)
 
 
 def from_jax_train_state(tree: Mapping[str, Any]) -> Dict:

@@ -24,7 +24,6 @@ import torch
 
 from .. import resolve_device
 from ..codec import encodec as codec_mod
-from ..params import tree_map
 from ..text import byt5 as byt5_mod
 from ..text import gpt2 as gpt2_mod
 from ..utils.weights import load_state_dict
@@ -52,26 +51,23 @@ def device_of(args) -> torch.device:
     return resolve_device(args.device)
 
 
-def _on(dev, tree):
-    return tree_map(lambda t: t.to(dev), tree)
-
-
-def load_frozen(frozen, dev, *, codec_cfg=None, encodec=None, gpt2_cfg=None,
-                gpt2=None, byt5_cfg=None, byt5=None):
-    """``frozen`` (a random tree from ``init_nac_frozen`` or
-    ``init_slp_frozen``) with each tree whose weights path is given
-    imported from it, and a warning for each that stays random."""
+def imported_frozen(names, *, codec_cfg=None, encodec=None, gpt2_cfg=None,
+                    gpt2=None, byt5_cfg=None, byt5=None) -> dict:
+    """The frozen trees among ``names`` whose weights path is given,
+    imported from it (CPU tensors), for ``init_nac_frozen`` /
+    ``init_slp_frozen``'s ``given``, which draw only the others; a warning
+    for each that stays random."""
     loaded = {"codec": (encodec, "--encodec", lambda p: codec_mod.
                         import_hf_state_dict(load_state_dict(p), codec_cfg)),
               "gpt2": (gpt2, "--gpt2", lambda p: gpt2_mod.
                        import_hf_state_dict(load_state_dict(p), gpt2_cfg)),
               "byt5": (byt5, "--byt5", lambda p: byt5_mod.
                        import_hf_state_dict(load_state_dict(p), byt5_cfg))}
-    out = dict(frozen)
-    for name in frozen:
+    out = {}
+    for name in names:
         path, flag, importer = loaded[name]
         if path:
-            out[name] = _on(dev, importer(path))
+            out[name] = importer(path)
         else:
             print(f"[warn] {flag} not given: random {name} weights (smoke "
                   "only)")

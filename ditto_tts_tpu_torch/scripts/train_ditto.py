@@ -23,7 +23,8 @@ from ..params import init_dit_train_state, init_nac_frozen, tree_map
 from ..train import steps as steps_mod
 from ..train.checkpoint import load_checkpoint
 from ..train.trainer import Trainer
-from ._common import add_common_args, device_of, gpt2_tokenizer, load_frozen
+from ._common import (add_common_args, device_of, gpt2_tokenizer,
+                      imported_frozen)
 
 
 def main(argv=None):
@@ -53,10 +54,11 @@ def main(argv=None):
         scan_blocks=True, remat_blocks=True)
 
     codec_cfg, gpt2_cfg = CodecConfig(), GPT2Config()
-    frozen = load_frozen(
-        init_nac_frozen(codec_cfg, gpt2_cfg, seed=args.seed, device=dev), dev,
-        codec_cfg=codec_cfg, encodec=args.encodec, gpt2_cfg=gpt2_cfg,
-        gpt2=args.gpt2)
+    frozen = init_nac_frozen(
+        codec_cfg, gpt2_cfg, seed=args.seed, device=dev,
+        given=imported_frozen(("codec", "gpt2"), codec_cfg=codec_cfg,
+                              encodec=args.encodec, gpt2_cfg=gpt2_cfg,
+                              gpt2=args.gpt2))
     if args.nac_checkpoint:
         nac_trainable, _ = load_checkpoint(args.nac_checkpoint)
         nac_trainable = nac_trainable.get("params", nac_trainable)

@@ -18,7 +18,8 @@ from ..data.mls import MLSDataset, batches, default_buckets
 from ..params import init_nac_frozen, init_nac_train_state
 from ..train import steps as steps_mod
 from ..train.trainer import Trainer
-from ._common import add_common_args, device_of, gpt2_tokenizer, load_frozen
+from ._common import (add_common_args, device_of, gpt2_tokenizer,
+                      imported_frozen)
 
 
 def main(argv=None):
@@ -35,10 +36,11 @@ def main(argv=None):
 
     nac_cfg = NACConfig(lambda_factor=args.lambda_factor)
     codec_cfg, gpt2_cfg = CodecConfig(), GPT2Config()
-    frozen = load_frozen(
-        init_nac_frozen(codec_cfg, gpt2_cfg, seed=args.seed, device=dev), dev,
-        codec_cfg=codec_cfg, encodec=args.encodec, gpt2_cfg=gpt2_cfg,
-        gpt2=args.gpt2)
+    frozen = init_nac_frozen(
+        codec_cfg, gpt2_cfg, seed=args.seed, device=dev,
+        given=imported_frozen(("codec", "gpt2"), codec_cfg=codec_cfg,
+                              encodec=args.encodec, gpt2_cfg=gpt2_cfg,
+                              gpt2=args.gpt2))
 
     tokenizer = gpt2_tokenizer(args)
     batch_size = args.batch_size or nac_cfg.batch_size

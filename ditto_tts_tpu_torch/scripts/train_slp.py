@@ -18,7 +18,7 @@ from ..params import init_slp_frozen, init_slp_train_state
 from ..text.tokenizers import ByT5Tokenizer
 from ..train import steps as steps_mod
 from ..train.trainer import Trainer
-from ._common import add_common_args, device_of, load_frozen
+from ._common import add_common_args, device_of, imported_frozen
 
 
 def main(argv=None):
@@ -30,10 +30,11 @@ def main(argv=None):
 
     slp_cfg = SLPConfig()
     codec_cfg, byt5_cfg = CodecConfig(), byt5_small_config()
-    frozen = load_frozen(
-        init_slp_frozen(codec_cfg, byt5_cfg, seed=args.seed, device=dev), dev,
-        codec_cfg=codec_cfg, encodec=args.encodec, byt5_cfg=byt5_cfg,
-        byt5=args.byt5)
+    frozen = init_slp_frozen(
+        codec_cfg, byt5_cfg, seed=args.seed, device=dev,
+        given=imported_frozen(("byt5", "codec"), codec_cfg=codec_cfg,
+                              encodec=args.encodec, byt5_cfg=byt5_cfg,
+                              byt5=args.byt5))
 
     tokenizer = ByT5Tokenizer()
     batch_size = args.batch_size or slp_cfg.batch_size

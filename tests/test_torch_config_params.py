@@ -313,6 +313,41 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
             cli.main(["--train-path", "unused"])
 
 
+def test_frozen_trees_draw_only_what_is_not_given():
+    """``init_nac_frozen`` / ``init_slp_frozen`` with ``given`` trees (the
+    CLIs' imported weights) keep them as they are and draw only the
+    others; with nothing given they are one draw over every tree."""
+    from ditto_tts_tpu_torch.params import (_codec_spec, fill_spec,
+                                            init_nac_frozen, init_slp_frozen,
+                                            tree_leaves, tree_map)
+    tc = tconfig.PipelineConfig.from_json(CFG.to_json())
+    gpt2 = tconfig.GPT2Config(vocab_size=32, n_positions=64,
+                              n_embd=tc.nac.hidden_size, n_layer=1)
+    byt5 = tconfig.ByT5Config(vocab_size=40, d_model=16, d_kv=4, d_ff=32,
+                              num_layers=1, num_heads=2)
+
+    def equal(a, b):
+        la, lb = tree_leaves(a), tree_leaves(b)
+        return [p for p, _ in la] == [p for p, _ in lb] and all(
+            torch.equal(x, y) for (_, x), (_, y) in zip(la, lb))
+
+    full = init_nac_frozen(tc.codec, gpt2, seed=3, device="cpu")
+    marker = {"wte": torch.full((2, 2), 7.0)}
+    part = init_nac_frozen(tc.codec, gpt2, seed=3, device="cpu",
+                           given={"gpt2": marker})
+    assert list(part) == ["codec", "gpt2"] and part["gpt2"] is not marker
+    assert equal(part["gpt2"], marker) and equal(part["codec"], full["codec"])
+    # the SLP's codec sorts after ByT5: given ByT5, the codec is the first
+    # draw of the seed
+    slp = init_slp_frozen(tc.codec, byt5, seed=3, device="cpu",
+                          given={"byt5": marker})
+    want = tree_map(torch.from_numpy, fill_spec(_codec_spec(tc.codec), 3))
+    assert equal(slp["byt5"], marker) and equal(slp["codec"], want)
+    both = init_slp_frozen(tc.codec, byt5, seed=3, device="cpu",
+                           given={"byt5": marker, "codec": full["codec"]})
+    assert equal(both["codec"], full["codec"])
+
+
 def test_kernel_wrappers_have_no_cpu_fallback():
     """The CUDA wrappers refuse CPU tensors (the plain versions are chosen
     one level up, by the tensor's device) and count no launch."""
