@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's DiTTo serving chain and its training path
-(the DiTTo, NAC and SLP steps, the data layer and the training CLIs) on one
-NVIDIA H100.
+"""Drive the PyTorch/CUDA port's DiTTo serving chain, its training path
+(the DiTTo, NAC and SLP steps, the data layer and the training CLIs) and
+its synthesis and evaluation CLIs on one NVIDIA H100.
 
     python3 chip_smoke.py        (from the root of a checkout; one CUDA card)
 
@@ -107,11 +107,27 @@ Phases (any failure exits non-zero and prints no result line):
      bf16 encodes held against conv1d_plain); then train_nac, train_slp and
      train_ditto (--latent-cache, --nac-checkpoint, --layers 1) as
      subprocesses on the card, and train_ditto --epochs 2, which resumes
- 12. a {"kernels": [...]} line, then the card line, then the last line
+ 12. synthesize and evaluate: the synthesize CLI twin as a subprocess
+     twice (a 10 s prompt WAV; phase 4's BigVGAN as a .pth under
+     BigVGAN's names, its DiT and NAC trees as .npz checkpoints; 50 DDPM
+     steps): a 24 kHz mono int16 WAV of the prompt cut to whole mel hops
+     (finite: the CLI refuses a non-finite waveform), the second bitwise
+     equal, the imported BigVGAN tree equal to the
+     written one leaf for leaf; the evaluate CLI twin as a subprocess (phase
+     11's 4-clip WAV corpus, B=2, 2 batches, 50 DDPM steps, s2t-medium and
+     ECAPA random, --smoke-ortho --oracle-ref): every JSON key, finite,
+     CER and WER >= 0, SIM-o and SIM-r in [-1, 1]; the same evaluation in
+     this process with exact launches per evaluated batch (A 1200, B 90, C
+     54, D 0), exact matmul-softmax calls per greedy_decode (12 + 198 x 6
+     x 2 = 2388, no kernel launch), per-utterance synthesis, ASR, ECAPA and
+     mel_mae times; S2T-medium encode and decode_logits and ECAPA (with
+     and without a mask) card vs CPU within 1e-4 of max|CPU|, greedy ids
+     equal under the margin rule (max_len 48), mel_mae within 1e-5
+ 13. a {"kernels": [...]} line, then the card line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
 Weights are random (numpy seed 0, init_generator_params and
-init_dit_train_state); nothing is downloaded. Phases 10 and 11 write to
+init_dit_train_state); nothing is downloaded. Phases 10-12 write to
 .chip_smoke_tmp/ in the checkout and remove it after them. With DITTO_RECORD_DIR set, a JSON record of every number goes
 to $DITTO_RECORD_DIR/chip_smoke.json.
 """
@@ -169,7 +185,7 @@ FUSED_NCL_PATH = {"attention": 0, "conv1d": 4, "act_conv": 36, "snake": 0}
 # it outside Pallas): the decoder's self and cross attention over one
 # 1472-wide head, ByT5's biased attention in each of its 12 layers, and
 # none of GPT2's (serving reads only its wte)
-SLP_PLAIN_ATTENTION = {"decoder": 2, "byt5": 12, "gpt2": 0}
+SLP_PLAIN_ATTENTION = {"decoder": 2, "byt5": 12, "gpt2": 0, "s2t": 0}
 
 
 class ShapeLog:
@@ -219,13 +235,16 @@ class ShapeLog:
 class PlainAttentionLog:
     """Counts the matmul-softmax attention calls while it is entered, by
     caller and shape: it wraps ``attention_plain`` where the SLP decoder
-    (``nn/transformer.py``), ByT5 (``text/byt5.py``) and GPT2
-    (``text/gpt2.py``) look it up at call time, and restores it after."""
+    (``nn/transformer.py``), ByT5 (``text/byt5.py``), GPT2
+    (``text/gpt2.py``) and the S2T ASR (``models/s2t.py``) look it up at
+    call time, and restores it after."""
 
     def __enter__(self):
+        from ditto_tts_tpu_torch.models import s2t
         from ditto_tts_tpu_torch.nn import transformer
         from ditto_tts_tpu_torch.text import byt5, gpt2
-        self.mods = {"decoder": transformer, "byt5": byt5, "gpt2": gpt2}
+        self.mods = {"decoder": transformer, "byt5": byt5, "gpt2": gpt2,
+                     "s2t": s2t}
         self.saved = {k: m.attention_plain for k, m in self.mods.items()}
         self.counts = {k: 0 for k in self.mods}
         self.shapes = {}
@@ -1649,8 +1668,8 @@ def train_phase(torch, np, params, params_cpu, card, rec):
 NAC_BATCH, SLP_BATCH, CORPUS_TIMED = 4, 8, 5
 # matmul-softmax attention a step (forward; the backward calls none):
 # GPT2's 12 layers in the NAC step; the SLP decoder's 2 and ByT5's 12
-NAC_PLAIN_ATTENTION = {"decoder": 0, "byt5": 0, "gpt2": 12}
-SLP_STEP_PLAIN_ATTENTION = {"decoder": 2, "byt5": 12, "gpt2": 0}
+NAC_PLAIN_ATTENTION = {"decoder": 0, "byt5": 0, "gpt2": 12, "s2t": 0}
+SLP_STEP_PLAIN_ATTENTION = {"decoder": 2, "byt5": 12, "gpt2": 0, "s2t": 0}
 # the synthetic corpus: exactly 10 s (the 10 s bucket) and ~12 s (the
 # 12.5 s bucket), WAV bytes under MLS's .opus names; real Ogg-Opus clips of
 # 10.5 and 11.5 s beside them where libopus loads
@@ -2122,6 +2141,399 @@ def corpus_phase(torch, np, params, params_cpu, byt5_gpu, card, rec):
 
 
 # --------------------------------------------------------------------------
+# phase 12: synthesize and evaluate (the CLI twins and the eval leg)
+# --------------------------------------------------------------------------
+
+# the synthesize twin: a 10 s prompt, 50 DDPM steps; the evaluate twin: B=2
+# over phase 11's 4-clip corpus (two batches, the 10 s and the 12.5 s
+# bucket), 50 DDPM steps, s2t-medium and ECAPA; the card-vs-CPU greedy
+# decode stops at GREEDY_CPU_LEN ids (the CPU side's time). A CPU rehearsal
+# sets smaller CLI arguments here.
+PROMPT_SECONDS = 10
+SYNTH_ARGS = ["--steps", "50"]
+EVAL_BATCH, EVAL_BATCHES = 2, 2
+EVAL_ARGS = ["--steps", "50"]
+GREEDY_CPU_LEN = 48
+EVAL_TOL = 1e-4         # S2T and ECAPA, card vs CPU: max|err| / max|CPU|
+MEL_MAE_TOL = 1e-5      # mel_mae, card vs CPU, relative
+
+
+def greedy_attention_calls(s2t_cfg, max_len: int) -> int:
+    """Matmul-softmax calls of one ``greedy_decode``: the encoder's layers
+    once, the decoder's self and cross attention at every step."""
+    return s2t_cfg.encoder_layers + (max_len - 2) * s2t_cfg.decoder_layers * 2
+
+
+def bigvgan_state_dict(tree, cfg) -> dict:
+    """The vocoder tree under BigVGAN's generator names (the inverse of
+    ``models.vocoder.import_bigvgan_state_dict``), as CPU tensors."""
+    sd = {}
+
+    def put(prefix, p):
+        for k, v in p.items():
+            sd[f"{prefix}.{k}"] = v.detach().cpu()
+
+    put("conv_pre", tree["conv_pre"])
+    nk = len(cfg.resblock_kernel_sizes)
+    for i, up in enumerate(tree["ups"]):
+        put(f"ups.{i}.0", up)
+        for j, rb in enumerate(tree["resblocks"][i]):
+            b = f"resblocks.{i * nk + j}"
+            for m in range(len(rb["convs1"])):
+                put(f"{b}.convs1.{m}", rb["convs1"][m])
+                put(f"{b}.convs2.{m}", rb["convs2"][m])
+                put(f"{b}.activations.{2 * m}.act", rb["act1"][m])
+                put(f"{b}.activations.{2 * m + 1}.act", rb["act2"][m])
+    put("activation_post.act", tree["act_post"])
+    put("conv_post", tree["conv_post"])
+    return sd
+
+
+def greedy_compared_steps(want_ids, ref_logits, tol: float, eos: int) -> int:
+    """The margin rule: the first step i at which a row not yet done has a
+    reference top-2 logit margin (position i - 1) below 10 x ``tol``, else
+    the full length; ids are compared before it."""
+    top = ref_logits.topk(2, dim=-1).values
+    margin = top[..., 0] - top[..., 1]
+    for i in range(2, want_ids.shape[1]):
+        done = (want_ids[:, 2:i] == eos).any(dim=1)
+        if ((margin[:, i - 1] < 10 * tol) & ~done).any():
+            return i
+    return want_ids.shape[1]
+
+
+def rel_err(got, want) -> tuple:
+    err = (got.float().cpu() - want.float()).abs().max().item()
+    return err, want.float().abs().max().item()
+
+
+def run_cli(which: str, args: list, timeout: int = 600):
+    cmd = [sys.executable, "-m", f"ditto_tts_tpu_torch.scripts.{which}",
+           *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=timeout)
+    dt = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{which} {args}: rc {proc.returncode}\n{proc.stdout[-3000:]}\n"
+             f"{proc.stderr[-3000:]}")
+    return proc.stdout, dt
+
+
+def read_wav(np, path):
+    import wave
+    with wave.open(str(path), "rb") as f:
+        head = (f.getnchannels(), f.getsampwidth(), f.getframerate())
+        pcm = np.frombuffer(f.readframes(f.getnframes()), np.int16)
+    return head, pcm
+
+
+def eval_phase(torch, np, cfg, params_cpu, dev, card, rec):
+    import shutil
+    from ditto_tts_tpu_torch import kernels
+    from ditto_tts_tpu_torch.data import mls
+    from ditto_tts_tpu_torch.eval.metrics import mel_mae
+    from ditto_tts_tpu_torch.eval.throughput import time_fn
+    from ditto_tts_tpu_torch.infer.generator import build_synthesize
+    from ditto_tts_tpu_torch.models import ecapa, s2t, vocoder
+    from ditto_tts_tpu_torch.params import (init_ecapa_params,
+                                            init_s2t_params, tree_leaves,
+                                            tree_map)
+    from ditto_tts_tpu_torch.scripts import evaluate as ev
+    from ditto_tts_tpu_torch.scripts._common import (generator_params,
+                                                     gpt2_tokenizer)
+    from ditto_tts_tpu_torch.text.s2t_tokenizer import S2TTokenizer
+    from ditto_tts_tpu_torch.train.checkpoint import _flatten
+    from ditto_tts_tpu_torch.utils.profiling import annotate, trace
+    from ditto_tts_tpu_torch.utils.smoke import orthogonal_reinit
+    from ditto_tts_tpu_torch.utils.weights import load_state_dict
+
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    tmp = ROOT / ".chip_smoke_tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    try:
+        tmp.mkdir(parents=True)
+        # ---- the synthesize twin: a 10 s prompt, files for BigVGAN (.pth,
+        # BigVGAN's names), the DiTTo and NAC checkpoints (.npz) ----
+        import wave
+        prompt, n_prompt = tmp / "prompt.wav", PROMPT_SECONDS * 24000
+        t = np.arange(n_prompt) / 24000
+        pcm = 0.3 * np.sin(2 * np.pi * 190 * t) * (1 + 0.5 * np.sin(
+            2 * np.pi * 3 * t)) / 1.5
+        with wave.open(str(prompt), "wb") as f:
+            f.setnchannels(1)
+            f.setsampwidth(2)
+            f.setframerate(24000)
+            f.writeframes((pcm * 32767).astype(np.int16).tobytes())
+        files = {k: tmp / n for k, n in (("bigvgan", "bigvgan.pth"),
+                                         ("ditto", "DiTTO_final.npz"),
+                                         ("nac", "NAC_final.npz"))}
+        t0 = time.perf_counter()
+        torch.save(bigvgan_state_dict(params_cpu.vocoder, cfg.vocoder),
+                   files["bigvgan"])
+        # uncompressed (np.savez): the checkpoints' keys, without ~40 s of
+        # deflate; load_checkpoint reads either
+        np.savez(files["ditto"], **_flatten({"params": params_cpu.dit}))
+        np.savez(files["nac"], **_flatten({"params": {
+            "embedding_head": params_cpu.embedding_head,
+            "vector_quantizer": params_cpu.vector_quantizer}}))
+        out["write_files_s"] = time.perf_counter() - t0
+        sizes = {k: os.path.getsize(p) for k, p in files.items()}
+        imported = vocoder.import_bigvgan_state_dict(
+            load_state_dict(str(files["bigvgan"])), cfg.vocoder)
+        got, want = list(tree_leaves(imported)), \
+            list(tree_leaves(params_cpu.vocoder))
+        if [p for p, _ in got] != [p for p, _ in want] or not all(
+                torch.equal(a, b) for (_, a), (_, b) in zip(got, want)):
+            fail("the imported BigVGAN tree differs from the one written")
+        mib = ", ".join(f"{k} {v / 2**20:.0f} MiB" for k, v in sizes.items())
+        log(f"  files: {mib} in {out['write_files_s']:.1f} s; the imported "
+            "BigVGAN tree "
+            f"equals the written one, {len(got)} leaves bit for bit")
+
+        synth_args = ["--audio", str(prompt), "--text", "bonjour, numéro un",
+                      "--seed", "3", "--device", dev.type, *SYNTH_ARGS,
+                      *(a for k, p in files.items()
+                        for a in (f"--{k}", str(p)))]
+        wavs, secs = [], []
+        for i in range(2):
+            stdout, dt = run_cli("synthesize", synth_args + [
+                "--out", str(tmp / f"out{i}.wav")])
+            if any(f"random {w}" in stdout for w in
+                   ("vocoder weights", "DiT weights", "NAC head")):
+                fail(f"synthesize: a given file was not loaded:\n{stdout}")
+            wavs.append(read_wav(np, tmp / f"out{i}.wav"))
+            secs.append(dt)
+        (head, pcm0), (_, pcm1) = wavs
+        want_len = 256 * (n_prompt // 256)   # whole mel hops, as JAX's chain
+        if head != (1, 2, 24000) or len(pcm0) != want_len:
+            fail(f"synthesize: WAV {head}, {len(pcm0)} samples; expected "
+                 f"(1, 2, 24000), {want_len}")
+        if not np.array_equal(pcm0, pcm1):
+            fail("synthesize: the same --seed gave different WAVs")
+        # finite: write_wav refuses a non-finite waveform, so rc 0 says it
+        if pcm0.std() == 0:
+            fail("synthesize: a constant WAV")
+        log(f"  synthesize CLI ({PROMPT_SECONDS} s prompt, {SYNTH_ARGS}, "
+            f"fp32 DiT, --bigvgan/--ditto/--nac): "
+            f"{[round(s, 2) for s in secs]} s "
+            f"wall; 24 kHz mono int16, {len(pcm0)} samples (the prompt's "
+            f"{n_prompt} cut to whole mel hops), peak {np.abs(pcm0).max()}"
+            f", rms {pcm0.astype(np.float64).std():.1f}; the second run "
+            "bitwise equal")
+        out["synthesize_cli_s"] = secs
+        out["synthesize_samples"] = len(pcm0)
+
+        # ---- the evaluate twin, as a subprocess ----
+        corpus = tmp / "mls"
+        write_corpus(np, corpus, opus=False)
+        eval_args = ["--data-path", str(corpus), "--batch-size",
+                     str(EVAL_BATCH), "--max-batches", str(EVAL_BATCHES),
+                     "--s2t", "random", "--ecapa", "random", "--smoke-ortho",
+                     "--oracle-ref", "--device", dev.type, "--out",
+                     str(tmp / "eval.json"), *EVAL_ARGS]
+        stdout, dt = run_cli("evaluate", eval_args)
+        res = json.loads((tmp / "eval.json").read_text())
+        keys = {"mel_mae_mean", "num_utterances", "cer", "wer", "sim_o",
+                "sim_r"}
+        vals = [res[k] for k in sorted(keys) if k in res]
+        if set(res) != keys or res["num_utterances"] != \
+                EVAL_BATCH * EVAL_BATCHES or not all(
+                    np.isfinite(v) for v in vals) or \
+                res["cer"] < 0 or res["wer"] < 0 or not all(
+                    -1 <= res[k] <= 1 for k in ("sim_o", "sim_r")):
+            fail(f"evaluate: results {res}")
+        log(f"  evaluate CLI ({EVAL_BATCHES} batches of {EVAL_BATCH} from "
+            f"the 4-clip corpus, {EVAL_ARGS}, S2T and ECAPA random, "
+            f"--smoke-ortho --oracle-ref): {dt:.1f} s wall; {res}")
+        out["evaluate_cli_s"] = dt
+        out["evaluate_results"] = res
+
+        # ---- the same evaluation in this process: launches and times ----
+        args = ev.parse_args(eval_args)
+        ecfg = ev.pipeline_config(args)
+        p_eval = generator_params(
+            args, ecfg, ev.gpt2_config(args), dev,
+            smoke=lambda tr: orthogonal_reinit(tr, seed=args.seed))
+        ds = mls.MLSDataset(str(corpus), gpt2_tokenizer(args),
+                            ecfg.dit.max_token_length, tokenizer_name="gpt2",
+                            strict_duration=not args.lenient_duration)
+        synth = build_synthesize(ecfg, device=dev)
+        # the CLI's geometries: s2t-medium and ECAPA unless --*-tiny
+        s2t_cfg = ev.tiny_s2t_config() if args.s2t_tiny else \
+            s2t.s2t_medium_config()
+        e_cfg = ecapa.tiny_ecapa_config() if args.ecapa_tiny else \
+            ecapa.ECAPAConfig()
+        s2t_p = init_s2t_params(s2t_cfg, args.seed + 5, dev)
+        e_p = init_ecapa_params(e_cfg, args.seed + 6, dev)
+        s2t_tok = S2TTokenizer.placeholder(s2t_cfg.vocab_size)
+        bos = s2t_tok.lang_code_to_id["fr"]
+        asr = ev.build_asr(s2t_p, s2t_cfg, s2t_tok, bos, dev)
+        embed = ev.build_embed(e_p, e_cfg, dev)
+        greedy_want = {"decoder": 0, "byt5": 0, "gpt2": 0,
+                       "s2t": greedy_attention_calls(s2t_cfg,
+                                                     ev.ASR_MAX_LEN)}
+        no_kernels = {k: 0 for k in DEFAULT_PATH}
+        buckets = mls.default_buckets(ecfg.audio.sample_rate,
+                                      ecfg.audio.min_audio_seconds,
+                                      ecfg.audio.max_audio_seconds)
+        per_batch, per_utt = [], []
+        for bi, batch in enumerate(mls.batches(ds, EVAL_BATCH,
+                                               buckets=buckets,
+                                               shuffle=False)):
+            if bi >= EVAL_BATCHES:
+                break
+            audio = torch.from_numpy(batch["audio"]).to(dev)
+            mask = torch.from_numpy(batch["padding_mask"]).to(dev)
+            gen = torch.Generator(device=dev).manual_seed(args.seed + bi)
+            kernels.reset_launches()
+            wav, dt = sync_time(torch, synth, p_eval, audio, mask,
+                                batch["text_ids"], gen)
+            launches = dict(kernels.launches)
+            check_launches(f"evaluated batch {bi}", launches, DEFAULT_PATH, 1)
+            if not bool(torch.isfinite(wav).all()):
+                fail(f"evaluated batch {bi}: a non-finite waveform")
+            per_batch.append({"samples": audio.shape[-1], "synthesis_s": dt,
+                              "launches": launches})
+            wav = wav.float().cpu().numpy()
+            for r in range(wav.shape[0]):
+                n = int(batch["padding_mask"][r].sum())
+                kernels.reset_launches()
+                with PlainAttentionLog() as plain:
+                    hyp, t_asr = sync_time(torch, asr, wav[r], n)
+                if plain.counts != greedy_want or \
+                        dict(kernels.launches) != no_kernels:
+                    fail(f"ASR: matmul-softmax calls {plain.counts} "
+                         f"(expected {greedy_want}), kernel launches "
+                         f"{dict(kernels.launches)} (expected none)")
+                emb, t_emb = sync_time(torch, embed, wav[r], n)
+                mm, t_mel = sync_time(torch, mel_mae, wav[r][None, :n],
+                                      batch["audio"][r, 0][None, :n],
+                                      device=dev)
+                if not (np.isfinite(emb).all() and np.isfinite(mm)):
+                    fail("eval leg: an embedding or mel_mae not finite")
+                per_utt.append({"seconds": n / 24000,
+                                "synthesis_s": dt / wav.shape[0],
+                                "asr_s": t_asr, "ecapa_s": t_emb,
+                                "mel_mae_s": t_mel, "hyp_words":
+                                    len(hyp.split())})
+        for b in per_batch:
+            log(f"  evaluated batch of {EVAL_BATCH} x {b['samples']} "
+                f"samples: synthesis {b['synthesis_s']:.3f} s, launches "
+                f"{b['launches']} (exact)")
+        for u in per_utt:
+            log(f"  utterance {u['seconds']:.2f} s: synthesis "
+                f"{u['synthesis_s']:.3f} (batch / {EVAL_BATCH}), ASR "
+                f"{u['asr_s']:.3f}, ECAPA {u['ecapa_s']:.4f}, mel_mae "
+                f"{u['mel_mae_s']:.4f} s ({card})")
+        out["batches"], out["utterances"] = per_batch, per_utt
+        out["asr_attention_calls"] = greedy_want["s2t"]
+
+        # S2T-medium greedy_decode alone, one utterance at max_len 200
+        clip = ds[0]["audio"]
+        fb = torch.from_numpy(ev._fbank16k(clip, len(clip)))
+        ones = torch.ones(fb.shape[:2], dtype=torch.int32)
+        kernels.reset_launches()
+        with PlainAttentionLog() as plain:
+            # eval/throughput.py's fenced timer (one call, no warm-up)
+            t_greedy = time_fn(lambda: s2t.greedy_decode(
+                s2t_p, s2t_cfg, fb.to(dev), ones.to(dev), forced_bos_id=bos,
+                max_len=ev.ASR_MAX_LEN), iters=1, warmup=0)
+        if plain.counts != greedy_want or \
+                dict(kernels.launches) != no_kernels:
+            fail(f"greedy_decode: {plain.counts}, {dict(kernels.launches)}")
+        log(f"  S2T greedy_decode (d {s2t_cfg.d_model}, {fb.shape[1]} fbank "
+            f"frames, "
+            f"max_len {ev.ASR_MAX_LEN}): {t_greedy:.3f} s, "
+            f"{plain.counts['s2t']} matmul-softmax calls (exact), no "
+            f"kernel launches ({card})")
+        out["greedy_decode"] = {"s": t_greedy, "frames": fb.shape[1],
+                                "attention_calls": plain.counts["s2t"]}
+
+        # utils/profiling.py on the card: a named range and the device's
+        # kernels in the Chrome trace of one ECAPA embedding
+        with trace(str(tmp / "trace")):
+            with annotate("ecapa_embed"):
+                embed(clip, len(clip))
+        events = json.loads((tmp / "trace" / "trace.json").read_text())[
+            "traceEvents"]
+        dev_events = [e for e in events if e.get("cat") == "kernel"]
+        named = any(e.get("name") == "ecapa_embed" for e in events)
+        if not named or (dev.type == "cuda" and not dev_events):
+            fail(f"profiling.trace: {len(dev_events)} kernel events, the "
+                 f"named range {'present' if named else 'missing'}")
+        dev_ms = sum(e.get("dur", 0) for e in dev_events) / 1e3
+        log(f"  profiling.trace of one ECAPA embedding: {len(dev_events)} "
+            f"kernels, {dev_ms:.3f} ms of device time, the named range "
+            "present")
+        out["trace"] = {"kernels": len(dev_events), "device_ms": dev_ms}
+
+        # ---- the eval leg, card vs CPU (fp32, TF32 off) ----
+        cmp = {}
+        s2t_cpu = tree_map(lambda x: x.cpu(), s2t_p)
+        e_cpu = tree_map(lambda x: x.cpu(), e_p)
+        with torch.inference_mode():
+            enc_g = s2t.encode(s2t_p, s2t_cfg, fb.to(dev), ones.to(dev))
+            enc_c = s2t.encode(s2t_cpu, s2t_cfg, fb, ones)
+            cmp["s2t encode"] = rel_err(enc_g[0], enc_c[0])
+            t0 = time.perf_counter()
+            ids_c = s2t.greedy_decode(s2t_cpu, s2t_cfg, fb, ones,
+                                      forced_bos_id=bos,
+                                      max_len=GREEDY_CPU_LEN)
+            cpu_greedy_s = time.perf_counter() - t0
+            ids_g = s2t.greedy_decode(s2t_p, s2t_cfg, fb.to(dev),
+                                      ones.to(dev), forced_bos_id=bos,
+                                      max_len=GREEDY_CPU_LEN).cpu()
+            lg_c = s2t.decode_logits(s2t_cpu, s2t_cfg, ids_c, *enc_c)
+            lg_g = s2t.decode_logits(s2t_p, s2t_cfg, ids_c.to(dev), *enc_g)
+            cmp["s2t decode_logits"] = rel_err(lg_g, lg_c)
+            steps = greedy_compared_steps(
+                ids_c, lg_c, EVAL_TOL * lg_c.abs().max().item(),
+                s2t_cfg.eos_token_id)
+            ids_equal = torch.equal(ids_g[:, :steps], ids_c[:, :steps])
+            n = fb.shape[1]
+            feats = torch.cat([fb, fb], dim=0)
+            emask = torch.ones((2, n), dtype=torch.int32)
+            emask[1, int(0.7 * n):] = 0
+            for label, m in (("ecapa", None), ("ecapa masked", emask)):
+                cmp[label] = rel_err(
+                    ecapa.ecapa_embed(e_p, e_cfg, feats.to(dev), None if m
+                                      is None else m.to(dev)),
+                    ecapa.ecapa_embed(e_cpu, e_cfg, feats, m))
+        rng = np.random.default_rng(13)
+        noisy = (clip + 0.01 * rng.standard_normal(len(clip))).astype(
+            np.float32)
+        mm_g = mel_mae(clip, noisy, device=dev)
+        mm_c = mel_mae(clip, noisy, device="cpu")
+        for k, (err, scale) in cmp.items():
+            log(f"  {k}: card vs CPU max|err| {err:.3e} (max|CPU| "
+                f"{scale:.3e}, tol {EVAL_TOL:g} x max)")
+        log(f"  greedy ids (max_len {GREEDY_CPU_LEN}, CPU {cpu_greedy_s:.1f}"
+            f" s): compared over {steps} of {GREEDY_CPU_LEN} steps (margin "
+            f"rule), {'equal' if ids_equal else 'DIFFERENT'}; mel_mae card "
+            f"{mm_g!r}, CPU {mm_c!r}")
+        out["card_vs_cpu"] = {k: {"max_abs_err": e, "scale": s}
+                              for k, (e, s) in cmp.items()}
+        out["card_vs_cpu"]["greedy"] = {"steps_compared": steps,
+                                        "max_len": GREEDY_CPU_LEN,
+                                        "equal": ids_equal,
+                                        "cpu_s": cpu_greedy_s}
+        out["card_vs_cpu"]["mel_mae"] = {"card": mm_g, "cpu": mm_c}
+        bad = [k for k, (e, s) in cmp.items() if not e <= EVAL_TOL * s]
+        if bad or not ids_equal or not (
+                abs(mm_g - mm_c) <= MEL_MAE_TOL * abs(mm_c)):
+            fail(f"eval leg card vs CPU: {bad}, greedy ids equal "
+                 f"{ids_equal}, mel_mae {mm_g} vs {mm_c}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 12: {out['phase_s']:.1f} s")
+    rec["synthesize_evaluate"] = out
+    return dict(per_batch[0]["launches"])
+
+
+# --------------------------------------------------------------------------
 
 def main() -> None:
     if not (ROOT / "ditto_tts_tpu_torch" / "__init__.py").exists():
@@ -2217,13 +2629,18 @@ def main() -> None:
     corpus_launches = corpus_phase(torch, np, params, params_cpu,
                                    slp[1].byt5, card, rec)
 
+    log("== 12. synthesize and evaluate (the CLI twins, S2T-medium, ECAPA, "
+        "the metrics)")
+    eval_launches = eval_phase(torch, np, cfg, params_cpu,
+                               torch.device("cuda"), card, rec)
+
     # launches per 10 s request (fused_ncl: per forward of its two stages;
     # train_step: per step of phase 10's audio leg; nac_step, slp_step: per
-    # step of phase 11)
+    # step of phase 11; eval_batch: per evaluated batch of phase 12)
     paths = {"default": DEFAULT_PATH, "fused_pallas": FUSED_PALLAS_PATH,
              "fused_ncl": FUSED_NCL_PATH, "slp": DEFAULT_PATH,
              "ddim": DEFAULT_PATH, "train_step": train_launches,
-             **corpus_launches}
+             **corpus_launches, "eval_batch": eval_launches}
     sources = {
         "attention": "ditto_tts_tpu/ops/attention.py:95 pallas_attention "
                      "(#1) + :173 pallas_attention_packed (#2)",

@@ -9,6 +9,8 @@
     and a long skip through proj_in/proj_out.
 
 ``ref_compat`` (quirk #2) skips the self-attention ``out_proj``.
+``import_reference_state_dict`` maps the reference's ``DiTTO.state_dict()``
+names into the tree.
 
 Per-request work is hoisted out of the denoising loop by ``prepare``: the
 block parameters are cast to the compute dtype once (the JAX
@@ -16,7 +18,8 @@ block parameters are cast to the compute dtype once (the JAX
 the text once (``prepare_cross_kv``) and the RoPE tables are built once.
 The block stack is a Python loop (``scan_blocks`` changes nothing).
 Attention goes through ``ops.attention.attention`` (kernel A on the card,
-differentiable); the dense layers are ``torch.matmul``.
+differentiable), heads wider than 128 through the matmul-softmax math, as
+JAX dispatches them; the dense layers are ``torch.matmul``.
 
 Training (``train/steps.py``) calls ``ditto_forward`` with a
 ``torch.Generator`` in place of JAX's ``dropout_key``:
@@ -42,13 +45,14 @@ import functools
 import math
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
 from ..config import DiTConfig
 from ..nn.core import dense, embed, layer_norm
-from ..ops.attention import attention
+from ..ops.attention import attention, attention_plain
 from ..ops.rope import apply_rope, rope_tables
 
 
@@ -137,6 +141,17 @@ def draw_keep_masks(cfg: DiTConfig, generator: torch.Generator, b: int,
             >= cfg.cross_attn_dropout for _ in range(cfg.num_layers)]
 
 
+def _attend(q, k, v):
+    """``ops.attention.attention`` (kernel A on the card) for heads up to
+    128 wide; a wider head (``ref_trained_dit_config``'s one head of 768)
+    takes the matmul-softmax math on any device, as the JAX ``attention``
+    dispatch sends it to ``sdpa_reference`` (Pallas and kernel A take head
+    dims up to 128)."""
+    if q.shape[-1] > 128:
+        return attention_plain(q, k, v)
+    return attention(q, k, v)
+
+
 def dit_block(params, cfg: DiTConfig, x, rope_cs: Tuple, cross_kv: Tuple,
               keep=None):
     """One DiT block. rope_cs = (cos, sin); cross_kv = this layer's (K, V);
@@ -156,7 +171,7 @@ def dit_block(params, cfg: DiTConfig, x, rope_cs: Tuple, cross_kv: Tuple,
     q = apply_rope(q.reshape(b, s, nh, h // nh), cos, sin).transpose(1, 2)
     k = apply_rope(k.reshape(b, s, nh, h // nh), cos, sin).transpose(1, 2)
     v = _split_heads(v, nh)
-    attn_out = _merge_heads(attention(q, k, v))
+    attn_out = _merge_heads(_attend(q, k, v))
     if not cfg.ref_compat:
         attn_out = dense(attn_p["out_proj"], attn_out)
     x = attn_out + residual  # quirk #2: the reference skips out_proj
@@ -176,7 +191,7 @@ def dit_block(params, cfg: DiTConfig, x, rope_cs: Tuple, cross_kv: Tuple,
         p = _inverted(torch.softmax(scores, dim=-1), keep, rate)
         heads = torch.matmul(p.to(v.dtype).float(), v.float()).to(x.dtype)
     else:
-        heads = attention(q, k, v)
+        heads = _attend(q, k, v)
     cross = dense(params["cross_attn"]["out_proj"], _merge_heads(heads))
     if keep is not None and _dropout_mode(cfg) == "output":
         cross = _inverted(cross, keep, rate)
@@ -251,3 +266,48 @@ def ditto_forward(params, cfg: DiTConfig, x, text_emb, t, *,
 
     x = dense(params["proj_out"], x.to(x_skip.dtype))
     return x_skip + x
+
+
+def import_reference_state_dict(sd, cfg: DiTConfig) -> Dict:
+    """A reference ``DiTTO.state_dict()`` (numpy arrays or CPU tensors) as
+    the param tree of CPU tensors. Reference names (ref
+    src/model/DiTTO.py:37-57, src/components/DiT.py:8-98): ``t_embedding``,
+    ``time_embed.{0,2}`` (a Sequential), ``ada_ln.{time,text}_mlp.1``
+    (Sequential(SiLU, Linear)), ``blocks.{i}`` with ``norm{1,2,3}``,
+    ``attn`` / ``cross_attn`` (torch MultiheadAttention: packed
+    ``in_proj_*`` and ``out_proj``), ``mlp_fc1`` / ``gate`` / ``mlp_fc2``,
+    and ``proj_in`` / ``proj_out``. Buffers (``alphas_cumprod``,
+    ``rotary.inv_freq``) and the frozen ``nac.*`` subtree are ignored."""
+    def arr(name):
+        return torch.from_numpy(np.array(sd[name], copy=True))
+
+    def lin(prefix):
+        out = {"weight": arr(f"{prefix}.weight")}
+        if f"{prefix}.bias" in sd:
+            out["bias"] = arr(f"{prefix}.bias")
+        return out
+
+    def mha(prefix):
+        return {"in_proj_weight": arr(f"{prefix}.in_proj_weight"),
+                "in_proj_bias": arr(f"{prefix}.in_proj_bias"),
+                "out_proj": lin(f"{prefix}.out_proj")}
+
+    blocks = []
+    for i in range(cfg.num_layers):
+        b = f"blocks.{i}"
+        blocks.append({
+            "norm1": lin(f"{b}.norm1"), "attn": mha(f"{b}.attn"),
+            "norm2": lin(f"{b}.norm2"),
+            "cross_attn": mha(f"{b}.cross_attn"),
+            "norm3": lin(f"{b}.norm3"), "mlp_fc1": lin(f"{b}.mlp_fc1"),
+            "gate": lin(f"{b}.gate"), "mlp_fc2": lin(f"{b}.mlp_fc2")})
+    return {
+        "t_embedding": {"weight": arr("t_embedding.weight")},
+        "time_embed": {"fc1": lin("time_embed.0"),
+                       "fc2": lin("time_embed.2")},
+        "ada_ln": {"time_mlp": lin("ada_ln.time_mlp.1"),
+                   "text_mlp": lin("ada_ln.text_mlp.1")},
+        "proj_in": lin("proj_in"),
+        "proj_out": lin("proj_out"),
+        "blocks": blocks,
+    }

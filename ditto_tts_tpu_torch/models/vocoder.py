@@ -6,6 +6,9 @@ dispatch as it runs on the TPU (Pallas available).
   3 AMP residual blocks (k = 3,7,11; dilations 1,3,5)] -> anti-aliased
   SnakeBeta -> conv_post (k=7, no bias) -> clamp [-1, 1].
 
+``import_bigvgan_state_dict`` maps a BigVGAN generator state dict into the
+tree.
+
 The signal is carried [B, C, T] throughout in ``cfg.carry_dtype`` and
 every conv is kernel B (operands in ``cfg.compute_dtype``, fp32 sums): the
 JAX channels-last carry and its NLC/NCL hybrid were TPU lane-padding
@@ -37,11 +40,13 @@ other polyphase, composed and banded-GEMM form takes ``torch.sin``.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..codec.encodec import _fold_weight_norm
 from ..config import VocoderConfig
 from ..nn.conv import conv_transpose1d_poly
 from ..ops.act_conv import aa_snake_conv1d, aa_snake_conv1d_ncl
@@ -220,3 +225,46 @@ def bigvgan_forward(params, cfg: VocoderConfig, mel, *, fused: bool = False,
                  else impl, fast=kind == "hybrid" and impl == "fused_conv")
     x = _conv_same(params["conv_post"], x, cdt=cdt)
     return torch.clamp(x.float(), -1.0, 1.0)
+
+
+def import_bigvgan_state_dict(sd: Dict[str, np.ndarray],
+                              cfg: VocoderConfig) -> Dict:
+    """A BigVGAN generator state dict (numpy arrays or CPU tensors; weight
+    norm folded where it is not already) as the param tree of CPU tensors;
+    the activations' ``alpha`` / ``beta`` [1, C, 1] become [C]."""
+    def t(a):
+        return torch.from_numpy(np.array(a, copy=True))
+
+    def conv(prefix):
+        out = {"weight": t(_fold_weight_norm(sd, prefix))}
+        if f"{prefix}.bias" in sd:
+            out["bias"] = t(sd[f"{prefix}.bias"])
+        return out
+
+    def act(prefix):
+        out = {"alpha": t(np.asarray(sd[f"{prefix}.alpha"]).reshape(-1))}
+        if f"{prefix}.beta" in sd:
+            out["beta"] = t(np.asarray(sd[f"{prefix}.beta"]).reshape(-1))
+        return out
+
+    nk = len(cfg.resblock_kernel_sizes)
+    resblocks = []
+    for i in range(len(cfg.upsample_rates)):
+        level = []
+        for j, dils in enumerate(cfg.resblock_dilation_sizes):
+            b = f"resblocks.{i * nk + j}"
+            nd = range(len(dils))
+            level.append({
+                "convs1": [conv(f"{b}.convs1.{m}") for m in nd],
+                "convs2": [conv(f"{b}.convs2.{m}") for m in nd],
+                "act1": [act(f"{b}.activations.{2 * m}.act") for m in nd],
+                "act2": [act(f"{b}.activations.{2 * m + 1}.act")
+                         for m in nd],
+            })
+        resblocks.append(level)
+    return {"conv_pre": conv("conv_pre"),
+            "ups": [conv(f"ups.{i}.0")
+                    for i in range(len(cfg.upsample_rates))],
+            "resblocks": resblocks,
+            "act_post": act("activation_post.act"),
+            "conv_post": conv("conv_post")}

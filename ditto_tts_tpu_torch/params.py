@@ -338,6 +338,74 @@ def slp_spec(cfg: SLPConfig, codebook_size: int):
             "length_predictor": _linear(d, cfg.nb_classes)}
 
 
+def s2t_spec(cfg):
+    """models/s2t.py's init_s2t: Linear layers, LayerNorms at ones / zeros,
+    N(0, 0.02) conv weights (zero bias) and token embeddings."""
+    d = cfg.d_model
+
+    def attn():
+        return {k: _linear(d, d)
+                for k in ("q_proj", "k_proj", "v_proj", "out_proj")}
+
+    def layer(ffn, cross):
+        out = {"self_attn": attn(), "self_attn_layer_norm": _layer_norm(d),
+               "fc1": _linear(d, ffn), "fc2": _linear(ffn, d),
+               "final_layer_norm": _layer_norm(d)}
+        if cross:
+            out["encoder_attn"] = attn()
+            out["encoder_attn_layer_norm"] = _layer_norm(d)
+        return out
+
+    convs, in_ch = [], cfg.input_features
+    for i in range(cfg.num_conv_layers):
+        out_ch = (cfg.conv_channels if i < cfg.num_conv_layers - 1
+                  else 2 * d)
+        convs.append({"weight": _n((out_ch, in_ch, cfg.conv_kernel), 0.02),
+                      "bias": _zeros((out_ch,))})
+        in_ch = out_ch // 2
+    return {"conv": {"conv_layers": convs},
+            "encoder_layers": [layer(cfg.encoder_ffn, False)]
+            * cfg.encoder_layers,
+            "encoder_norm": _layer_norm(d),
+            "embed_tokens": {"weight": _n((cfg.vocab_size, d), 0.02)},
+            "decoder_layers": [layer(cfg.decoder_ffn, True)]
+            * cfg.decoder_layers,
+            "decoder_norm": _layer_norm(d)}
+
+
+def ecapa_spec(cfg):
+    """models/ecapa.py's init_ecapa: N(0, 0.05) conv weights with zero
+    biases; BatchNorms with weight 1, bias 0, running mean 0, running
+    variance 1."""
+    def conv(o, i, k):
+        return {"weight": _n((o, i, k), 0.05), "bias": _zeros((o,))}
+
+    def bn(c):
+        return {"weight": _ones((c,)), "bias": _zeros((c,)),
+                "running_mean": _zeros((c,)), "running_var": _ones((c,))}
+
+    def tdnn(o, i, k):
+        return {"conv": conv(o, i, k), "norm": bn(o)}
+
+    c, sub = cfg.channels, cfg.channels // cfg.scale
+    block = {"tdnn1": tdnn(c, c, 1),
+             "res2net": {"blocks": [tdnn(sub, sub, cfg.res_kernel)]
+                         * (cfg.scale - 1)},
+             "tdnn2": tdnn(c, c, 1),
+             "se": {"conv1": conv(cfg.se_channels, c, 1),
+                    "conv2": conv(c, cfg.se_channels, 1)}}
+    return {"block0": tdnn(c, cfg.input_features, cfg.kernel),
+            "blocks": [block] * len(cfg.dilations),
+            "mfa": tdnn(cfg.out_channels, 3 * c, 1),
+            "asp": {"tdnn_conv": conv(cfg.attention_channels,
+                                      3 * cfg.out_channels, 1),
+                    "tdnn_norm": bn(cfg.attention_channels),
+                    "conv": conv(cfg.out_channels, cfg.attention_channels,
+                                 1)},
+            "asp_norm": bn(2 * cfg.out_channels),
+            "fc": conv(cfg.embedding_dim, 2 * cfg.out_channels, 1)}
+
+
 def fill_spec(spec, seed: int):
     """numpy fp32 arrays for a spec tree, drawn leaf by leaf in sorted-key
     order from ``np.random.default_rng(seed)``."""
@@ -359,12 +427,34 @@ def fill_spec(spec, seed: int):
     return fill(spec)
 
 
-def init_generator_params(cfg: PipelineConfig,
-                          seed: int = 0) -> GeneratorParams:
+def init_generator_params(cfg: PipelineConfig, seed: int = 0, *,
+                          gpt2_cfg: Optional[GPT2Config] = None,
+                          given: Optional[Mapping[str, Any]] = None
+                          ) -> GeneratorParams:
     """Random CPU fp32 parameters with the JAX init trees' structure, shapes
-    and distributions (GPT2 at its default size, of which the serving chain
-    reads only ``wte``), from one numpy seed."""
-    return from_jax_params(fill_spec(generator_spec(cfg), seed))
+    and distributions (GPT2 at ``gpt2_cfg``, by default its default size at
+    the NAC width, of which the serving chain reads only ``wte``), from one
+    numpy seed. The fields in ``given`` (imported weights, CPU tensors)
+    replace drawn ones after the whole tree is drawn, so a random field has
+    the same values whichever others are given."""
+    spec = generator_spec(cfg)
+    if gpt2_cfg is not None:
+        spec["gpt2"] = _gpt2_spec(gpt2_cfg.n_embd, gpt2_cfg.vocab_size,
+                                  gpt2_cfg.n_positions, gpt2_cfg.n_layer)
+    drawn = tree_map(torch.from_numpy, fill_spec(spec, seed))
+    return GeneratorParams(**{**drawn, **dict(given or {})})
+
+
+def init_s2t_params(cfg, seed: int = 0, device=None) -> Dict:
+    """A random fp32 S2T tree (``s2t_spec``) on ``device`` (``cuda`` unless
+    the caller passes ``"cpu"``), from a numpy seed."""
+    return _draw(s2t_spec(cfg), seed, device)
+
+
+def init_ecapa_params(cfg, seed: int = 0, device=None) -> Dict:
+    """A random fp32 ECAPA tree (``ecapa_spec``) on ``device``, from a numpy
+    seed."""
+    return _draw(ecapa_spec(cfg), seed, device)
 
 
 def init_slp_params(cfg: PipelineConfig, seed: int = 1,
