@@ -46,7 +46,8 @@
 // 2e-5 tolerance. Each block owns one (batch*head, 64-query tile) and walks
 // K/V in 64-key tiles with an online softmax; Q/K/V tiles are staged in
 // shared memory as fp32 with a padded row stride; each of the 128 threads
-// keeps a 4-row x (D/8)-column slice of the output in registers.
+// keeps a 4-row x (D/8)-column slice of the output in registers, and sums
+// each tile's PV apart before adding it to that slice.
 
 #include "common.cuh"
 #include "mma.cuh"
@@ -182,12 +183,15 @@ attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 
+    // the tile's PV in its own sum, then acc = acc * a + tile: summing all
+    // Sk products into one running sum loses ~Sk * 2^-26 of a row whose
+    // values are alike (2.6e-5 of max|out| over 1024 text keys), two
+    // levels ~(64 + Sk / 64) * 2^-26
+    float t[4][DJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = row_a[ty * 4 + i];
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= a;
-    }
+      for (int j = 0; j < DJ; ++j) t[i][j] = 0.f;
 #pragma unroll 4
     for (int c = 0; c < kBK; ++c) {
       float pv[4], vv[DJ];
@@ -198,7 +202,13 @@ attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+        for (int j = 0; j < DJ; ++j) t[i][j] = fmaf(pv[i], vv[j], t[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float a = row_a[ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(acc[i][j], a, t[i][j]);
     }
   }
   __syncthreads();

@@ -193,6 +193,22 @@ def greedy_decode(params, cfg: S2TConfig, features, mask, *,
     return ids
 
 
+def greedy_compared_steps(want_ids, ref_logits, tol: float, eos: int) -> int:
+    """How far two greedy decodes can be held to each other: the first
+    step i at which a row not yet done has a reference top-2 logit margin
+    (at position i - 1) below 10 x ``tol``, the logits' tolerance, else the
+    full length. ``want_ids`` [B, L] is the reference decode and
+    ``ref_logits`` [B, L, V] its ``decode_logits``; ids are compared before
+    the returned step, since a near-tie may flip between devices."""
+    top = ref_logits.topk(2, dim=-1).values
+    margin = top[..., 0] - top[..., 1]
+    for i in range(2, want_ids.shape[1]):
+        done = (want_ids[:, 2:i] == eos).any(dim=1)
+        if ((margin[:, i - 1] < 10 * tol) & ~done).any():
+            return i
+    return want_ids.shape[1]
+
+
 # ---------------------------------------------------------------------------
 # kaldi-style fbank features (HF Speech2TextFeatureExtractor equivalent)
 # ---------------------------------------------------------------------------

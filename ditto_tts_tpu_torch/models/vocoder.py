@@ -268,3 +268,29 @@ def import_bigvgan_state_dict(sd: Dict[str, np.ndarray],
             "resblocks": resblocks,
             "act_post": act("activation_post.act"),
             "conv_post": conv("conv_post")}
+
+
+def export_bigvgan_state_dict(tree: Dict, cfg: VocoderConfig) -> Dict:
+    """The vocoder tree under BigVGAN's generator names, as CPU tensors:
+    the inverse of ``import_bigvgan_state_dict`` (weights already folded,
+    ``alpha`` / ``beta`` kept [C])."""
+    sd = {}
+
+    def put(prefix, p):
+        for k, v in p.items():
+            sd[f"{prefix}.{k}"] = v.detach().cpu()
+
+    put("conv_pre", tree["conv_pre"])
+    nk = len(cfg.resblock_kernel_sizes)
+    for i, up in enumerate(tree["ups"]):
+        put(f"ups.{i}.0", up)
+        for j, rb in enumerate(tree["resblocks"][i]):
+            b = f"resblocks.{i * nk + j}"
+            for m in range(len(rb["convs1"])):
+                put(f"{b}.convs1.{m}", rb["convs1"][m])
+                put(f"{b}.convs2.{m}", rb["convs2"][m])
+                put(f"{b}.activations.{2 * m}.act", rb["act1"][m])
+                put(f"{b}.activations.{2 * m + 1}.act", rb["act2"][m])
+    put("activation_post.act", tree["act_post"])
+    put("conv_post", tree["conv_post"])
+    return sd

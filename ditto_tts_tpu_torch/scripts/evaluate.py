@@ -34,7 +34,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
-from typing import Callable
+import time
+from typing import Callable, List, Tuple
 
 import numpy as np
 import torch
@@ -112,6 +113,86 @@ def _tree(path: str, importer, cfg, seed: int, init, device):
     tree = checkpoint_params(path) if path.endswith(".npz") else \
         importer(load_state_dict(path), cfg)
     return tree_map(lambda t: t.to(device), tree)
+
+
+def _timed(times: dict, stage: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, its seconds added to ``times[stage]``. Every
+    stage ends in a copy to the host, so the host clock spans its device
+    work."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    times[stage] = times.get(stage, 0.0) + time.perf_counter() - t0
+    return out
+
+
+def evaluate_batch(params, cfg: PipelineConfig, synthesize, batch: dict,
+                   generator, device, *, tok, asr=None, embed=None,
+                   oracle_ref: bool = False) -> Tuple[List[dict], dict]:
+    """One collated batch through the chain and the scorers: the
+    synthesis, with ``--oracle-ref`` the render of the prompt's own latents
+    (``encode_prompt_latents`` + ``latents_to_waveform``), and for each
+    utterance mel-MAE, with ``asr`` the reference (the text, or the ASR of
+    the oracle render) and the hypothesis transcript, with ``embed`` SIM-o
+    and SIM-r (the second against a codec round trip of the prompt).
+
+    Returns (one dict per utterance: ``ref``, ``hyp``, ``mel_mae``,
+    ``sim_o``, ``sim_r``, and ``s``, its seconds per stage; the batch's
+    seconds per stage: ``synthesis``, ``oracle``)."""
+    times = {}
+    audio = torch.from_numpy(batch["audio"]).to(device)
+    mask = torch.from_numpy(batch["padding_mask"]).to(device)
+    wav = _timed(times, "synthesis", lambda: synthesize(
+        params, audio, mask, batch["text_ids"], generator).float().cpu()
+        .numpy())
+
+    @torch.inference_mode()
+    def oracle():
+        lat = encode_prompt_latents(params, cfg, audio, mask)
+        return latents_to_waveform(params, cfg, lat,
+                                   output_length=audio.shape[-1]).float() \
+            .cpu().numpy()
+
+    ref_wavs = _timed(times, "oracle", oracle) if oracle_ref else None
+    rows = []
+    for r in range(wav.shape[0]):
+        s, row = {}, {"ref": None, "hyp": None, "sim_o": None,
+                      "sim_r": None}
+        n = int(batch["padding_mask"][r].sum())
+        ref_audio = (ref_wavs[r] if ref_wavs is not None
+                     else batch["audio"][r, 0])
+        row["mel_mae"] = _timed(s, "mel_mae", mel_mae, wav[r][None, :n],
+                                ref_audio[None, :n], device=device)
+        if oracle_ref and asr is not None:
+            # the reference transcript is the ASR of the oracle render, so
+            # the comparison isolates the refined latents' fidelity
+            row["ref"] = _timed(s, "asr", asr, ref_audio, n)
+        else:
+            row["ref"] = tok.decode(
+                [t for t, m in zip(batch["text_ids"][r],
+                                   batch["text_mask"][r]) if m])
+        if embed is not None:
+            # SIM-o: generated vs the prompt (or its oracle render); SIM-r:
+            # generated vs the codec's reconstruction (ref
+            # Experiments.ipynb cells 13-15)
+            @torch.inference_mode()
+            def round_trip():
+                codes = codec_mod.codec_encode(
+                    params.codec, cfg.codec, audio[r:r + 1], mask[r:r + 1])
+                return codec_mod.codec_decode(
+                    params.codec, cfg.codec, codes,
+                    output_length=n)[0, 0].float().cpu().numpy()
+
+            recon = _timed(s, "codec", round_trip)
+            e_gen = _timed(s, "ecapa", embed, wav[r], n)
+            row["sim_o"] = cosine_similarity(
+                e_gen, _timed(s, "ecapa", embed, ref_audio, n))
+            row["sim_r"] = cosine_similarity(
+                e_gen, _timed(s, "ecapa", embed, recon, n))
+        if asr is not None:
+            row["hyp"] = _timed(s, "asr", asr, wav[r], n)
+        row["s"] = s
+        rows.append(row)
+    return rows, times
 
 
 def parse_args(argv=None):
@@ -239,67 +320,36 @@ def main(argv=None):
                     strict_duration=not args.lenient_duration)
     synthesize = build_synthesize(cfg, device=dev)
 
-    @torch.inference_mode()
-    def oracle(audio, mask):
-        lat = encode_prompt_latents(params, cfg, audio, mask)
-        return latents_to_waveform(params, cfg, lat,
-                                   output_length=audio.shape[-1])
-
-    refs, hyps, mel_maes, sim_o, sim_r = [], [], [], [], []
     buckets = default_buckets(cfg.audio.sample_rate,
                               cfg.audio.min_audio_seconds,
                               cfg.audio.max_audio_seconds)
     sseed = args.seed if args.sample_seed is None else args.sample_seed
+    rows = []
     for bi, batch in enumerate(batches(ds, args.batch_size, buckets=buckets,
                                        shuffle=False)):
         if bi >= args.max_batches:
             break
-        audio = torch.from_numpy(batch["audio"]).to(dev)
-        mask = torch.from_numpy(batch["padding_mask"]).to(dev)
         gen = torch.Generator(device=dev).manual_seed(sseed + bi)
-        wav = synthesize(params, audio, mask, batch["text_ids"], gen)
-        wav = wav.float().cpu().numpy()
-        ref_wavs = (oracle(audio, mask).float().cpu().numpy()
-                    if args.oracle_ref else None)
-        for r in range(wav.shape[0]):
-            n = int(batch["padding_mask"][r].sum())
-            ref_audio = (ref_wavs[r] if ref_wavs is not None
-                         else batch["audio"][r, 0])
-            mel_maes.append(mel_mae(wav[r][None, :n], ref_audio[None, :n],
-                                    device=dev))
-            if args.oracle_ref and asr is not None:
-                # the reference transcript is the ASR of the oracle render,
-                # so the comparison isolates the refined latents' fidelity
-                refs.append(asr(ref_audio, n))
-            else:
-                refs.append(tok.decode(
-                    [t for t, m in zip(batch["text_ids"][r],
-                                       batch["text_mask"][r]) if m]))
-            if embed is not None:
-                # SIM-o: generated vs the prompt (or its oracle render);
-                # SIM-r: generated vs the codec's reconstruction (ref
-                # Experiments.ipynb cells 13-15)
-                with torch.inference_mode():
-                    codes = codec_mod.codec_encode(
-                        params.codec, cfg.codec, audio[r:r + 1],
-                        mask[r:r + 1])
-                    recon = codec_mod.codec_decode(
-                        params.codec, cfg.codec, codes, output_length=n)
-                recon = recon[0, 0].float().cpu().numpy()
-                e_gen = embed(wav[r], n)
-                sim_o.append(cosine_similarity(e_gen, embed(ref_audio, n)))
-                sim_r.append(cosine_similarity(e_gen, embed(recon, n)))
-            if asr is not None:
-                hyps.append(asr(wav[r], n))
+        utts, stages = evaluate_batch(params, cfg, synthesize, batch, gen,
+                                      dev, tok=tok, asr=asr, embed=embed,
+                                      oracle_ref=args.oracle_ref)
+        rows += utts
+        for u in utts:
+            for k, v in u["s"].items():
+                stages[k] = stages.get(k, 0.0) + v
+        secs = batch["audio"].shape[-1] / cfg.audio.sample_rate
+        print(f"[eval] batch {bi} ({len(utts)} x {secs:g} s): " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in stages.items()))
 
-    results = {"mel_mae_mean": float(np.mean(mel_maes)),
-               "num_utterances": len(refs)}
-    if hyps:
+    results = {"mel_mae_mean": float(np.mean([u["mel_mae"] for u in rows])),
+               "num_utterances": len(rows)}
+    if asr is not None:
+        refs, hyps = [u["ref"] for u in rows], [u["hyp"] for u in rows]
         results["cer"] = cer(refs, hyps)
         results["wer"] = wer(refs, hyps)
-    if sim_o:
-        results["sim_o"] = float(np.mean(sim_o))
-        results["sim_r"] = float(np.mean(sim_r))
+    if embed is not None:
+        results["sim_o"] = float(np.mean([u["sim_o"] for u in rows]))
+        results["sim_r"] = float(np.mean([u["sim_r"] for u in rows]))
     with open(args.out, "w") as f:
         json.dump(results, f, indent=2)
     print(json.dumps(results, indent=2))

@@ -106,6 +106,21 @@ def test_attention_kernel_on_qkv_chunk_views(gen, dtype):
     _check(attention_cuda(q, k, v), attention_plain(q, k, v), dtype)
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sk", [1024, 4096])
+def test_attention_kernel_fp32_alike_values(gen, sk, d):
+    """fp32 over many keys whose values are alike, as in the DiT's
+    cross-attention over 1024 text ids: within the fp32 tolerance of an
+    fp64 reference, which one running sum of all Sk products (~Sk x 2^-26
+    of the output) misses."""
+    q = _rn(gen, 2, 4, 750, d, scale=3.0)
+    k = _rn(gen, 2, 4, sk, d, scale=0.05)
+    v = 0.05 + _rn(gen, 2, 4, sk, d, scale=0.005)
+    _check(attention_cuda(q, k, v),
+           attention_plain(q.double(), k.double(), v.double()),
+           torch.float32)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,c,t,o,k,dil", [
     (1, 3, 20, 5, 3, 1), (2, 13, 300, 9, 7, 4), (1, 70, 257, 65, 11, 2),

@@ -8,7 +8,6 @@ metrics, the fbank and the re-init bit for bit."""
 
 import json
 import os
-import sys
 
 import numpy as np
 import pytest
@@ -39,10 +38,6 @@ from ditto_tts_tpu_torch.utils.profiling import (annotate, check_determinism,
 from ditto_tts_tpu_torch.utils.smoke import orthogonal_reinit as t_ortho
 
 from _torch_port_util import jax_generator_params, jitter, port_params
-
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))))
-from chip_smoke import greedy_compared_steps  # noqa: E402
 
 TOL = 1e-4      # max |port - JAX| / max |JAX| for S2T and ECAPA
 
@@ -111,12 +106,12 @@ def test_s2t_greedy_decode_matches_jax(s2t):
                              max_len=16).numpy()
     assert got.shape == want.shape == (2, 16)
     assert (got[:, :2] == [[2, 5], [2, 5]]).all()
-    # the margin rule (chip_smoke.py's): ids are compared before the first
+    # the margin rule: ids are compared before the first
     # step whose reference top-2 logit margin is under 10x the tolerance
     enc = js2t.encode(jp, S2T_J, jnp.asarray(feats), jnp.asarray(mask))
     ref_logits = torch.from_numpy(np.asarray(js2t.decode_logits(
         jp, S2T_J, jnp.asarray(want), *enc)))
-    n = greedy_compared_steps(torch.from_numpy(want), ref_logits,
+    n = ts2t.greedy_compared_steps(torch.from_numpy(want), ref_logits,
                               TOL * ref_logits.abs().max().item(),
                               S2T_J.eos_token_id)
     print(f"greedy ids compared over {n} of 16 steps")

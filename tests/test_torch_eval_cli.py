@@ -24,12 +24,11 @@ from ditto_tts_tpu_torch.config import (AudioConfig, CodecConfig, DiTConfig,
                                         NACConfig, PipelineConfig,
                                         SamplerConfig, VocoderConfig,
                                         ref_trained_dit_config)
+from ditto_tts_tpu_torch.models.vocoder import export_bigvgan_state_dict
 from ditto_tts_tpu_torch.params import fill_spec, generator_spec, tree_map
 from ditto_tts_tpu_torch.train.checkpoint import _flatten
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, _REPO)
-from chip_smoke import bigvgan_state_dict  # noqa: E402
 
 
 def _write_wav(path, secs, freq=200.0):
@@ -89,7 +88,7 @@ def test_synthesize_cli_random_and_from_files(tmp_path):
     files = {"bigvgan": tmp_path / "bigvgan.pth",
              "ditto": tmp_path / "DiTTO_final.npz",
              "nac": tmp_path / "NAC_final.npz"}
-    torch.save(bigvgan_state_dict(tree_map(torch.from_numpy,
+    torch.save(export_bigvgan_state_dict(tree_map(torch.from_numpy,
                                            tree["vocoder"]), cfg.vocoder),
                files["bigvgan"])
     np.savez(files["ditto"], **_flatten({"params": tree["dit"],
@@ -151,6 +150,12 @@ def test_evaluate_cli_tiny(tmp_path):
         "--s2t-tiny", "--ecapa", "random", "--ecapa-tiny", "--smoke-ortho",
         "--oracle-ref", "--lenient-duration"])
     assert "[eval] s2t ASR loaded; <lang:fr> id 5" in log, log
+    # evaluate_batch's seconds per stage, one line a batch
+    line = next(ln for ln in log.splitlines()
+                if ln.startswith("[eval] batch 0 (2 x "))
+    for stage in ("synthesis", "oracle", "mel_mae", "asr", "codec",
+                  "ecapa"):
+        assert f" {stage} " in line, line
     res = json.loads(out.read_text())
     assert set(res) == {"mel_mae_mean", "num_utterances", "cer", "wer",
                         "sim_o", "sim_r"}

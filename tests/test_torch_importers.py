@@ -59,6 +59,20 @@ def test_bigvgan_import_matches_jax():
     assert_trees_bitwise(got_t, jvoc.import_bigvgan_state_dict(sd, VOC_CFG))
 
 
+def test_bigvgan_export_inverts_import():
+    """export_bigvgan_state_dict gives BigVGAN's own names and values back,
+    and importing its output gives the same tree bit for bit."""
+    sd = _bigvgan_sd()
+    cfg = to_torch_cfg(VOC_CFG)
+    tree = tvoc.import_bigvgan_state_dict(sd, cfg)
+    out = tvoc.export_bigvgan_state_dict(tree, cfg)
+    assert set(out) <= set(sd)
+    for k, v in out.items():
+        np.testing.assert_array_equal(v.numpy().reshape(sd[k].shape), sd[k],
+                                      err_msg=k)
+    assert_trees_bitwise(tvoc.import_bigvgan_state_dict(out, cfg), tree)
+
+
 def test_bigvgan_import_folds_weight_norm_as_jax():
     sd = _bigvgan_sd()
     rng = np.random.default_rng(4)
