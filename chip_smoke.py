@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's DiTTo serving chain, its training path
-(the DiTTo, NAC and SLP steps, the data layer and the training CLIs) and
-its synthesis and evaluation CLIs on one NVIDIA H100.
+(the DiTTo, NAC and SLP steps, the data layer and the training CLIs), its
+synthesis and evaluation CLIs and its data- and tensor-parallel training
+on one NVIDIA H100.
 
     python3 chip_smoke.py        (from the root of a checkout; one CUDA card)
 
@@ -80,8 +81,9 @@ Phases (any failure exits non-zero and prints no result line):
      causal at S1024, bf16 and fp32); one fp32 step card vs CPU (1 s clip,
      B=1, dropout 0, the same t and noise: loss, mu, nu, params); two
      steps from one state and seed bitwise equal; remat against none at 2
-     layers, fp32, dropout on; a checkpoint of the full train state
-     saved, restored and stepped bitwise equal; Trainer.fit (1 layer, 2
+     layers, fp32, dropout on; a checkpoint of a 2-layer train state
+     (CKPT_LAYERS: the 12-layer one's deflate took 73-83 s) saved,
+     restored and stepped bitwise equal; Trainer.fit (1 layer, 2
      epochs x 2 steps) writes its files and resumes from epoch 2
  11. NAC and SLP training and the training path from a corpus: the NAC
      step (build_nac_train_step: GPT2-small 12 x 768 from phase 4, EnCodec
@@ -131,11 +133,30 @@ Phases (any failure exits non-zero and prints no result line):
      change), logits within 1e-4 of max|CPU| and ids equal under the
      margin rule; ECAPA with and without a mask within 1e-4 of max|CPU|;
      mel_mae within 1e-5
- 13. a {"kernels": [...]} line, then the card line, then the last line
+ 13. parallel training: kernel A at a tensor-parallel rank's share of the
+     heads (bf16 and fp32 B8 H6 S750 D64) and at a 16-wide head (padded
+     to 64) held to its plain version; two ranks under gloo on the one
+     card (NCCL refuses two ranks on one GPU; torch.distributed.run of
+     ``chip_smoke.py --mesh-rank``) form the (data 1, model 2) and then the
+     (2, 1) mesh and take one fp32 DiTTo step at phase 10's width (12 x
+     768, 12 heads, B=8 of the 10 s bucket, the in-step encode, remat,
+     dropout 0.1, the global t, noise and masks from one seed), each held
+     on rank 0 to the same step in one process on the card (loss, mu, nu,
+     params; MESH_TOL), with exact launches per rank per step (A 48, B
+     14); under (1, 2) also phase 10's bf16 production step, 3 timed steps
+     per rank (gloo on one card: the collectives go through the host), and
+     a collective checkpoint of a one-layer state read back into one
+     process; train_ditto under torch.distributed.run --nproc-per-node 2
+     --mesh-model 2 --dist-backend gloo (one layer, B=2, phase 11's WAV
+     corpus), then resumed to a second epoch, its file loaded into one
+     process; NCCL at world size 1 (init, an all-reduce on the card,
+     teardown); the eval_discrimination twin at EVAL_DISC_ARGS, which
+     writes its report
+ 14. a {"kernels": [...]} line, then the card line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
 Weights are random (numpy seed 0, init_generator_params and
-init_dit_train_state); nothing is downloaded. Phases 10-12 write to
+init_dit_train_state); nothing is downloaded. Phases 10-13 write to
 .chip_smoke_tmp/ in the checkout and remove it after them. With DITTO_RECORD_DIR set, a JSON record of every number goes
 to $DITTO_RECORD_DIR/chip_smoke.json.
 """
@@ -1370,9 +1391,10 @@ def ddim_phase(torch, np, cfg, params, params_cpu, inputs, slp, rec):
 # 0.1, flat AdamW at lr 1e-4, weight decay 1e-6; B=8 of the 10 s bucket
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SAMPLES, TRAIN_LR = 12, 8, 240000, 1e-4
 TRAIN_TIMED = 5
-# reduced depth for the remat comparison and Trainer.fit (whose checkpoints
-# are compressed .npz, ~16 MB/s to write)
-REMAT_LAYERS, FIT_LAYERS = 2, 1
+# reduced depth for the remat comparison, the checkpoint round trip and
+# Trainer.fit (checkpoints are compressed .npz, ~16 MB/s to write: the
+# 12-layer state's round trip took 73-83 s of the script's time limit)
+REMAT_LAYERS, CKPT_LAYERS, FIT_LAYERS = 2, 2, 1
 
 
 def train_step_launches(dcfg, codec_cfg, audio: bool, *, remat=True) -> dict:
@@ -1507,8 +1529,6 @@ def train_phase(torch, np, params, params_cpu, card, rec):
                      "audio_s_per_s": TRAIN_BATCH * 10 / step_s,
                      "peak_bytes": peak, "losses": losses,
                      "launches": launches}
-        if name == "audio":
-            final = st
         del st, m
 
     # ---- A without remat (forward only) and in eval ----
@@ -1647,27 +1667,33 @@ def train_phase(torch, np, params, params_cpu, card, rec):
         fail(f"train: remat changes the gradient: {remat_err}")
     out["remat_mu_max_abs_err"] = remat_err
 
-    # ---- checkpoints: a full-width round trip, then Trainer.fit ----
+    # ---- checkpoints: a round trip at CKPT_LAYERS, then Trainer.fit ----
     tmp = ROOT / ".chip_smoke_tmp"
     shutil.rmtree(tmp, ignore_errors=True)
     try:
+        kcfg = dcfg.replace(num_layers=CKPT_LAYERS)
+        _, kstep, _ = build_ditto_train_step(kcfg, ccfg, gcfg,
+                                             learning_rate=TRAIN_LR)
+        saved = kstep(init_dit_train_state(kcfg, 0), frozen, legs["latents"],
+                      torch.Generator(device=dev).manual_seed(5))[0]
         path = str(tmp / "dit_state.npz")
-        (_, save_s) = sync_time(torch, save_checkpoint, path, final,
+        (_, save_s) = sync_time(torch, save_checkpoint, path, saved,
                                 {"epoch": 1})
         size = os.path.getsize(path)
         restored, load_s = sync_time(torch, restore_into,
-                                     init_dit_train_state(dcfg, 9), path)
-        nxt = [step_fn(s, frozen, legs["latents"],
-                       torch.Generator(device=dev).manual_seed(6))[0]
-               for s in (final, restored)]
+                                     init_dit_train_state(kcfg, 9), path)
+        nxt = [kstep(s, frozen, legs["latents"],
+                     torch.Generator(device=dev).manual_seed(6))[0]
+               for s in (saved, restored)]
         if not (torch.equal(flat_params(nxt[0]), flat_params(nxt[1]))
                 and torch.equal(nxt[0]["opt_state"][0]["nu"],
                                 nxt[1]["opt_state"][0]["nu"])
-                and int(nxt[1]["step"]) == TRAIN_TIMED + 2):
+                and int(nxt[1]["step"]) == 2):
             fail("train: a step from the restored state differs")
-        log(f"  checkpoint of the full train state: {size / 2**20:.1f} MiB "
-            f"npz, save {save_s:.1f} s, restore {load_s:.1f} s; the next "
-            "step from it equals the step from the saved state bit for bit")
+        log(f"  checkpoint of a {CKPT_LAYERS}-layer train state: "
+            f"{size / 2**20:.1f} MiB npz, save {save_s:.1f} s, restore "
+            f"{load_s:.1f} s; the next step from it equals the step from "
+            "the saved state bit for bit")
         out["checkpoint"] = {"bytes": size, "save_s": save_s,
                              "restore_s": load_s}
 
@@ -2591,6 +2617,388 @@ def eval_phase(torch, np, cfg, params_cpu, dev, card, rec):
 
 # --------------------------------------------------------------------------
 
+# --------------------------------------------------------------------------
+# phase 13: data- and tensor-parallel training, two gloo ranks on the card
+# --------------------------------------------------------------------------
+
+# the meshes of the two ranks, in the order one world forms them
+MESH_CASES = ((1, 2), (2, 1))
+MESH_TIMED = 3
+# the fp32 mesh step against the one-process step on the same card, max
+# |err| / max |one-process| (phase 10's card-vs-CPU bounds: the loss and
+# the parameters 1e-5, the moments 1e-4; each all-reduce adds one
+# reordered sum)
+MESH_TOL = {"loss": 1e-5, "mu": 1e-4, "nu": 1e-4, "params": 1e-5}
+EVAL_DISC_ARGS = ["--train-steps", "200", "--asr-steps", "100",
+                  "--ecapa-steps", "100", "--seeds", "0", "--max-batches",
+                  "1"]
+
+
+def _launch_ranks(n: int, argv: list, timeout: int, env=None):
+    """``argv`` under ``torch.distributed.run`` with ``n`` ranks on this
+    machine (a free port on localhost); a failing rank fails the phase."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+           str(n), "--master-addr", "localhost", "--master-port", str(port),
+           *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=timeout, env=env)
+    if proc.returncode != 0:
+        fail(f"{n} ranks of {argv}: rc {proc.returncode}\n"
+             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    return proc.stdout, time.perf_counter() - t0
+
+
+def mesh_rank(out_dir: str) -> None:
+    """One rank of phase 13 (``chip_smoke.py --mesh-rank DIR`` under
+    ``torch.distributed.run``): for each mesh of MESH_CASES, one fp32
+    full-width DiTTo step (the in-step encode, remat, dropout 0.1, the
+    global t, noise and masks from one seed), its launches of A and B on
+    this rank, and on rank 0 the same step in one process, compared; under
+    (1, 2) also phase 10's bf16 production step, timed, and a collective
+    checkpoint of a one-layer state read back into one process. Each rank
+    writes DIR/rank<r>.json."""
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch
+    from ditto_tts_tpu_torch import kernels
+    from ditto_tts_tpu_torch.config import (CodecConfig, DiTConfig,
+                                            GPT2Config, MeshConfig,
+                                            NACConfig)
+    from ditto_tts_tpu_torch.models.nac import init_nac_trainable
+    from ditto_tts_tpu_torch.params import (init_dit_train_state,
+                                            init_nac_frozen, ravel_tree,
+                                            tree_leaves, tree_map)
+    from ditto_tts_tpu_torch.parallel.mesh import (initialize_distributed,
+                                                   local_device, make_mesh)
+    from ditto_tts_tpu_torch.parallel.sharding import dit_param_specs
+    from ditto_tts_tpu_torch.parallel.train_setup import \
+        setup_mesh_training
+    from ditto_tts_tpu_torch.train.checkpoint import (restore_into,
+                                                      save_checkpoint)
+    from ditto_tts_tpu_torch.train.steps import build_ditto_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 is compared
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed("gloo")
+    rank = torch.distributed.get_rank()
+    dev = local_device("cuda")
+    ccfg, gcfg = CodecConfig(), GPT2Config()
+    nac = init_nac_frozen(ccfg, gcfg, seed=0, device=dev)
+    frozen = {"codec": nac["codec"], "gpt2": {"wte": nac["gpt2"]["wte"]},
+              "embedding_head": tree_map(lambda t: t.to(dev),
+                                         init_nac_trainable(
+                                             NACConfig(), seed=2)[
+                                             "embedding_head"])}
+    del nac
+    rng = np.random.default_rng(1)
+    batch = {"audio": torch.from_numpy(0.05 * rng.standard_normal(
+                 (TRAIN_BATCH, 1, TRAIN_SAMPLES)).astype(np.float32)),
+             "padding_mask": torch.ones((TRAIN_BATCH, TRAIN_SAMPLES),
+                                        dtype=torch.int32),
+             "text_ids": torch.from_numpy(rng.integers(
+                 0, gcfg.vocab_size, (TRAIN_BATCH, 1024)))}
+    cfg32 = DiTConfig(num_layers=TRAIN_LAYERS, num_heads=12,
+                      remat_blocks=True, compute_dtype="float32")
+    out = {"rank": rank, "device": str(dev), "cases": {}}
+
+    def flat(state):
+        adam = state["opt_state"][0]
+        return [ravel_tree(t)[0] for t in (state["params"], adam["mu"],
+                                           adam["nu"])]
+
+    for data, model in MESH_CASES:
+        name = f"{data}x{model}"
+        res = out["cases"][name] = {}
+        mesh = make_mesh(MeshConfig(data=data, model=model))
+        full = init_dit_train_state(cfg32, seed=0, flat_opt=False,
+                                    device=dev)
+        _, step, _ = build_ditto_train_step(
+            cfg32, ccfg, gcfg, learning_rate=TRAIN_LR, flat_opt=False,
+            device=dev, mesh=mesh)
+        state, _, shard_state, shard_batch = setup_mesh_training(
+            mesh, full, frozen, dit_param_specs(full["params"], cfg32, model))
+        local = shard_batch(batch)
+        # an untimed step first: the process's first step pays for cuBLAS,
+        # the kernels' loading and gloo's first connections
+        step(state, frozen, local, torch.Generator(device=dev).manual_seed(9))
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        (new, m), dt = sync_time(torch, step, state, frozen, local,
+                                 torch.Generator(device=dev).manual_seed(1))
+        res["launches"] = dict(kernels.launches)
+        res["fp32_step_s"] = dt
+        res["loss"] = m["loss"].item()
+        res["rows"], res["local_heads"] = local["audio"].shape[0], \
+            state["params"]["blocks"][0]["attn"]["in_proj_weight"].shape[
+                0] // 3 // cfg32.head_dim
+        gathered = shard_state.gather(new)
+        del state, new
+        if rank == 0:
+            # the same step in one process on this card
+            _, step1, _ = build_ditto_train_step(
+                cfg32, ccfg, gcfg, learning_rate=TRAIN_LR, flat_opt=False,
+                device=dev)
+            (ref, rm), res["one_process_step_s"] = sync_time(
+                torch, step1, full, frozen, batch,
+                torch.Generator(device=dev).manual_seed(1))
+            got, want = flat(gathered), flat(ref)
+            cmp = {"loss": (m["loss"], rm["loss"]),
+                   **dict(zip(("params", "mu", "nu"), zip(got, want)))}
+            for key, (x, y) in cmp.items():
+                res[key] = {"max_abs_err": (x - y).abs().max().item(),
+                            "scale": y.abs().max().item(),
+                            "tol": MESH_TOL[key]}
+            del ref, got, want
+        del gathered, full
+        torch.cuda.empty_cache()
+
+        if (data, model) == (1, 2):
+            # phase 10's production step (bf16 blocks, remat, dropout 0.1,
+            # per-leaf AdamW under TP), timed on each rank
+            cfg16 = cfg32.replace(compute_dtype="bfloat16")
+            _, step16, _ = build_ditto_train_step(
+                cfg16, ccfg, gcfg, learning_rate=TRAIN_LR, flat_opt=False,
+                device=dev, mesh=mesh)
+            full = init_dit_train_state(cfg16, seed=0, flat_opt=False,
+                                        device=dev)
+            st, _, _, _ = setup_mesh_training(
+                mesh, full, frozen, dit_param_specs(full["params"], cfg16,
+                                                    model))
+            del full
+            gen = torch.Generator(device=dev).manual_seed(2)
+            st, m = step16(st, frozen, local, gen)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            times, losses = [], []
+            for _ in range(MESH_TIMED):
+                (st, m), dt = sync_time(torch, step16, st, frozen, local, gen)
+                times.append(dt)
+                losses.append(m["loss"].item())
+            res["bf16_launches"] = dict(kernels.launches)
+            res["bf16_step_s"], res["bf16_losses"] = times, losses
+            del st
+            # one model-group all-reduce of a block's activations, as the
+            # megatron pair sums them (fp32 [B, S, H]; bf16 ones sum in fp32)
+            x = torch.randn((TRAIN_BATCH, TRAIN_SAMPLES // ccfg.hop_length,
+                             cfg32.hidden_dim), device=dev)
+            mesh.all_reduce(x, "model")
+            times = [sync_time(torch, mesh.all_reduce, x, "model")[1]
+                     for _ in range(5)]
+            res["all_reduce_fp32_activation_s"] = times
+            res["all_reduce_bytes"] = x.numel() * 4
+
+            # a collective checkpoint of a one-layer state, read back
+            cfg1 = cfg32.replace(num_layers=FIT_LAYERS)
+            full = init_dit_train_state(cfg1, seed=3, flat_opt=False,
+                                        device=dev)
+            st, _, sh1, _ = setup_mesh_training(
+                mesh, full, frozen, dit_param_specs(full["params"], cfg1,
+                                                    model))
+            path = str(Path(out_dir) / "mesh_state.npz")
+            (_, res["checkpoint_save_s"]) = sync_time(
+                torch, save_checkpoint, path, st, {"epoch": 1}, mesh=mesh,
+                specs=sh1.specs)
+            back = restore_into(init_dit_train_state(
+                cfg1, seed=4, flat_opt=False, device=dev), path)
+            res["checkpoint_equal"] = all(
+                torch.equal(a, b) for (_, a), (_, b) in zip(
+                    tree_leaves(back), tree_leaves(sh1.gather(st))))
+            del st, back, full
+        torch.cuda.empty_cache()
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def nccl_world1() -> None:
+    """``chip_smoke.py --nccl-world1``: NCCL starts on the card at world
+    size 1 (init, an all-reduce of a CUDA tensor, teardown)."""
+    import socket
+    import torch
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    x = torch.arange(4, dtype=torch.float32, device="cuda")
+    torch.distributed.all_reduce(x)
+    torch.cuda.synchronize()
+    ok = x.cpu().tolist() == [0.0, 1.0, 2.0, 3.0]
+    torch.distributed.destroy_process_group()
+    print(json.dumps({"nccl_version": ".".join(
+        map(str, torch.cuda.nccl.version())), "all_reduce_ok": ok}))
+
+
+def parallel_phase(torch, np, card, rec):
+    import shutil
+    from ditto_tts_tpu_torch.config import CodecConfig, DiTConfig
+    from ditto_tts_tpu_torch.kernel_bench import cuda_ms
+    from ditto_tts_tpu_torch.ops.attention import (attention_cuda,
+                                                   attention_plain)
+    from ditto_tts_tpu_torch.params import init_dit_train_state, tree_leaves
+    from ditto_tts_tpu_torch.train.checkpoint import restore_into
+
+    t_phase = time.perf_counter()
+    out = {"card": card, "note": "two ranks on one card under gloo: "
+           "collectives staged through the host, not NCCL across cards"}
+    dcfg = DiTConfig(num_layers=TRAIN_LAYERS, num_heads=12,
+                     remat_blocks=True)
+    want = train_step_launches(dcfg, CodecConfig(), True)
+
+    # ---- kernel A at a rank's share of the heads, held to plain ----
+    checks = Checks()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    frames = TRAIN_SAMPLES // CodecConfig().hop_length
+    a_err = {}
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn(TRAIN_BATCH, 6, frames, 64, generator=gen,
+                               device="cuda").to(dt) for _ in range(3))
+        dn = str(dt)[6:]
+        a_err[dn] = checks.compare(
+            "attention", f"{dn} B{TRAIN_BATCH} H6 S{frames} D64 (TP share)",
+            attention_cuda(q, k, v), attention_plain(q, k, v), dn)
+        if dt == torch.bfloat16:
+            out["a_h6_bf16_ms"] = cuda_ms(
+                torch, lambda: attention_cuda(q, k, v))
+    # the tiny heads of eval_discrimination (16 wide, padded to 64)
+    from ditto_tts_tpu_torch.ops.attention import attention
+    q, k, v = (torch.randn(4, 4, 120, 16, generator=gen, device="cuda")
+               for _ in range(3))
+    a_err["float32 D16 padded"] = checks.compare(
+        "attention", "float32 B4 H4 S120 D16 (padded to 64)",
+        attention(q, k, v), attention_plain(q, k, v), "float32")
+    if checks.bad:
+        fail("kernel A at the mesh shapes: " + "; ".join(checks.bad))
+    out["a_held_to_plain"] = a_err
+
+    tmp = ROOT / ".chip_smoke_tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    try:
+        tmp.mkdir(parents=True)
+        # ---- the two ranks: (1, 2) then (2, 1) ----
+        _, out["ranks_s"] = _launch_ranks(
+            2, [str(ROOT / "chip_smoke.py"), "--mesh-rank", str(tmp)], 900)
+        ranks = [json.loads((tmp / f"rank{r}.json").read_text())
+                 for r in range(2)]
+        out["ranks"] = ranks
+        launches = {}
+        for data, model in MESH_CASES:
+            name = f"{data}x{model}"
+            per_rank = [r["cases"][name] for r in ranks]
+            launches[name] = [c["launches"] for c in per_rank]
+            for r, c in enumerate(per_rank):
+                if c["launches"] != want:
+                    fail(f"mesh {name} rank {r}: launches {c['launches']} "
+                         f"a step, expected {want}")
+            ref = per_rank[0]
+            log(f"  mesh {name}: each rank {ref['rows']} rows x "
+                f"{ref['local_heads']} heads; fp32 step "
+                f"{[round(c['fp32_step_s'], 3) for c in per_rank]} s per "
+                f"rank (one process {ref['one_process_step_s']:.3f} s); "
+                f"launches a step per rank {launches[name]}")
+            for key in ("loss", "params", "mu", "nu"):
+                e = ref[key]
+                ok = e["max_abs_err"] <= e["tol"] * e["scale"]
+                log(f"    {key}: max_abs_err {e['max_abs_err']:.3e} (scale "
+                    f"{e['scale']:.3e}, tol {e['tol']:g}) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fail(f"mesh {name}: {key} against one process: {e}")
+        tp = [r["cases"]["1x2"] for r in ranks]
+        ar_s = tp[0]["all_reduce_fp32_activation_s"]
+        for r, c in enumerate(tp):
+            if c["bf16_launches"] != {k: v * MESH_TIMED
+                                      for k, v in want.items()}:
+                fail(f"bf16 mesh step rank {r}: launches {c['bf16_launches']}")
+            if not all(np.isfinite(c["bf16_losses"])):
+                fail(f"bf16 mesh step rank {r}: losses {c['bf16_losses']}")
+        if not tp[0]["checkpoint_equal"]:
+            fail("the collective checkpoint read back into one process "
+                 "differs from the gathered state")
+        log(f"  bf16 production step under (1, 2), gloo on one card: "
+            + "; ".join(f"rank {r} {[round(t, 4) for t in c['bf16_step_s']]}"
+                        f" s" for r, c in enumerate(tp))
+            + f"; one all-reduce of a block's activations "
+              f"({tp[0]['all_reduce_bytes'] / 2**20:.1f} MiB fp32) "
+              f"{[round(t * 1e3, 2) for t in ar_s]} ms on rank 0"
+            + f"; a collective checkpoint ({FIT_LAYERS} layer) saved in "
+              f"{tp[0]['checkpoint_save_s']:.1f} s and read back equal "
+              f"({card})")
+        out["launches_per_rank_step"] = launches
+
+        # ---- train_ditto at --mesh-model 2, then a resume ----
+        corpus = tmp / "mls"
+        write_corpus(np, corpus, opus=False)
+        ckpt = tmp / "ckpt"
+        common = ["-m", "ditto_tts_tpu_torch.scripts.train_ditto",
+                  "--dist-backend", "gloo", "--mesh-model", "2",
+                  "--train-path", str(corpus), "--checkpoint-dir", str(ckpt),
+                  "--layers", str(FIT_LAYERS), "--heads", "12",
+                  "--batch-size", "2", "--nb-samples", "4"]
+        cli = {}
+        for epochs in (1, 2):
+            stdout, cli[f"epochs_{epochs}_s"] = _launch_ranks(
+                2, common + ["--epochs", str(epochs)], 600)
+            if "mesh {'data': 1, 'model': 2} (gloo)" not in stdout or (
+                    epochs == 2 and "resumed from" not in stdout):
+                fail(f"train_ditto --mesh-model 2 --epochs {epochs}:\n"
+                     f"{stdout[-3000:]}")
+        st = restore_into(init_dit_train_state(
+            DiTConfig(num_layers=FIT_LAYERS, num_heads=12), seed=5,
+            flat_opt=False), str(ckpt / "DiTTO_epoch_2.npz"))
+        final = restore_into(st, str(ckpt / "DiTTO_final.npz"))
+        if int(st["step"]) != 4 or not all(
+                torch.equal(a, b) for (_, a), (_, b) in zip(
+                    tree_leaves(st), tree_leaves(final))):
+            fail("train_ditto's mesh checkpoint does not load into one "
+                 "process as its final state")
+        log(f"  train_ditto --mesh-model 2 (gloo, {FIT_LAYERS} layer, B=2): "
+            f"{cli['epochs_1_s']:.1f} s, resumed to epoch 2 in "
+            f"{cli['epochs_2_s']:.1f} s; its epoch-2 file loads into one "
+            f"process (step {int(st['step'])}) and equals its final file")
+        out["cli"] = cli
+
+        # ---- NCCL at world size 1 ----
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--nccl-world1"], cwd=ROOT, capture_output=True,
+                              text=True, timeout=300)
+        nccl = json.loads(proc.stdout.strip().splitlines()[-1]) \
+            if proc.returncode == 0 else None
+        if not (nccl and nccl["all_reduce_ok"]):
+            fail(f"NCCL at world size 1: rc {proc.returncode}\n"
+                 f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+        log(f"  NCCL {nccl['nccl_version']}: init, all_reduce and teardown at "
+            "world size 1")
+        out["nccl"] = nccl
+
+        # ---- the eval_discrimination twin, short ----
+        report = tmp / "eval_discrimination.json"
+        stdout, out["eval_discrimination_s"] = run_cli(
+            "eval_discrimination", EVAL_DISC_ARGS + [
+                "--workdir", str(tmp / "disc"), "--out", str(report)], 900)
+        rep = json.loads(report.read_text())
+        vals = [rep[a][m]["mean"] for a in ("random_weights",
+                                            "trained_weights")
+                for m in ("mel_mae_mean", "cer", "wer", "sim_o", "sim_r")]
+        if not all(np.isfinite(vals)):
+            fail(f"eval_discrimination: non-finite metrics {rep}")
+        log(f"  eval_discrimination ({' '.join(EVAL_DISC_ARGS)}): "
+            f"{out['eval_discrimination_s']:.1f} s, discriminates "
+            f"{rep['discriminates']}, margins {rep['margins']}")
+        out["eval_discrimination"] = rep
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 13: {out['phase_s']:.1f} s")
+    rec["parallel"] = out
+    return launches
+
+
 def main() -> None:
     if not (ROOT / "ditto_tts_tpu_torch" / "__init__.py").exists():
         fail("run from the root of a checkout: ditto_tts_tpu_torch/ is "
@@ -2601,6 +3009,11 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
+    # phase 13's own processes
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_rank(sys.argv[2])
+    if sys.argv[1:] == ["--nccl-world1"]:
+        return nccl_world1()
     count = torch.cuda.device_count()
     kind = torch.cuda.get_device_name(0)
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 is compared
@@ -2690,13 +3103,21 @@ def main() -> None:
     eval_launches = eval_phase(torch, np, cfg, params_cpu,
                                torch.device("cuda"), card, rec)
 
+    log("== 13. parallel training: two gloo ranks on the card, (1, 2) and "
+        "(2, 1) against one process, train_ditto --mesh-model 2, NCCL at "
+        "world size 1, eval_discrimination")
+    mesh_launches = parallel_phase(torch, np, card, rec)
+
     # launches per 10 s request (fused_ncl: per forward of its two stages;
     # train_step: per step of phase 10's audio leg; nac_step, slp_step: per
     # step of phase 11; eval_batch: per evaluated batch of phase 12)
     paths = {"default": DEFAULT_PATH, "fused_pallas": FUSED_PALLAS_PATH,
              "fused_ncl": FUSED_NCL_PATH, "slp": DEFAULT_PATH,
              "ddim": DEFAULT_PATH, "train_step": train_launches,
-             **corpus_launches, "eval_batch": eval_launches}
+             **corpus_launches, "eval_batch": eval_launches,
+             **{f"mesh_{m}_rank{r}_step": c
+                for m, cs in mesh_launches.items()
+                for r, c in enumerate(cs)}}
     sources = {
         "attention": "ditto_tts_tpu/ops/attention.py:95 pallas_attention "
                      "(#1) + :173 pallas_attention_packed (#2)",

@@ -37,6 +37,19 @@ Training (``train/steps.py``) calls ``ditto_forward`` with a
     (``aten.mm`` / ``addmm``) and recomputes the rest, attention included.
 With gradients, ``prepare`` runs inside every forward, so its bf16 casts
 and cross K/V stay in the autograd graph of that step's parameters.
+
+Tensor parallelism (``mesh``, a ``parallel.mesh.Mesh``; None runs the
+whole model): the block parameters are this rank's shares
+(``parallel/sharding.py``). An attention whose packed in_proj holds a
+share of the heads runs those heads (kernel A on the card) between the
+megatron pair of ``parallel/tp.py``: ``copy_to_model`` on its input, the
+row-parallel out_proj's partial products summed over the model group, then
+its bias; an attention kept whole runs as without a mesh. Under a model
+axis above 1 the gated MLP always splits (fc1 and gate column-parallel,
+fc2 row-parallel). The rows of x are this rank's share of the global
+batch: the dropout masks are drawn for the global batch (rows x
+``mesh.data``) and sliced, by rows and under ``"probs"`` by heads, so a
+mesh run draws what one process running the global batch draws.
 """
 
 from __future__ import annotations
@@ -54,6 +67,7 @@ from ..config import DiTConfig
 from ..nn.core import dense, embed, layer_norm
 from ..ops.attention import attention, attention_plain
 from ..ops.rope import apply_rope, rope_tables
+from ..parallel.tp import copy_to_model, row_parallel
 
 
 def global_adaln(params, x, time_emb, text_emb):
@@ -92,29 +106,44 @@ def prepare_blocks(params, cfg: DiTConfig) -> List[Dict]:
     return [cast(b) for b in params["blocks"]]
 
 
-def prepare_cross_kv(blocks, cfg: DiTConfig, text_emb):
-    """Every layer's cross-attention (K, V), each [B, nh, St, hd], from the
-    text embedding, which is constant across the denoising loop."""
-    h = cfg.hidden_dim
+def _local_heads(mha, cfg: DiTConfig) -> Tuple[int, bool]:
+    """(heads, split): the heads an MHA's packed in_proj holds on this
+    rank, and whether that is a share of them (tensor parallelism)."""
+    hl = mha["in_proj_weight"].shape[0] // 3
+    if hl % cfg.head_dim:
+        raise ValueError(
+            f"an in_proj share of {hl} rows holds part of a head of "
+            f"{cfg.head_dim}: keep the attention whole "
+            "(parallel.sharding.dit_param_specs with the config)")
+    return hl // cfg.head_dim, hl != cfg.hidden_dim
+
+
+def prepare_cross_kv(blocks, cfg: DiTConfig, text_emb, mesh=None):
+    """Every layer's cross-attention (K, V), each [B, nh, St, hd] (nh this
+    rank's heads under a mesh), from the text embedding, which is constant
+    across the denoising loop."""
     out = []
     for blk in blocks:
+        nh, split = _local_heads(blk["cross_attn"], cfg)
+        h = nh * cfg.head_dim
         w = blk["cross_attn"]["in_proj_weight"]
         b = blk["cross_attn"]["in_proj_bias"]
         te = text_emb.to(w.dtype)
+        if split:
+            te = copy_to_model(te, mesh)
         k = dense({"weight": w[h:2 * h], "bias": b[h:2 * h]}, te)
         v = dense({"weight": w[2 * h:], "bias": b[2 * h:]}, te)
-        out.append((_split_heads(k, cfg.num_heads),
-                    _split_heads(v, cfg.num_heads)))
+        out.append((_split_heads(k, nh), _split_heads(v, nh)))
     return out
 
 
-def prepare(params, cfg: DiTConfig, text_emb, seq_len: int):
+def prepare(params, cfg: DiTConfig, text_emb, seq_len: int, mesh=None):
     """Per-request state for ``ditto_forward``: cast blocks, cross K/V and
     the RoPE tables."""
     blocks = prepare_blocks(params, cfg)
     cdt = getattr(torch, cfg.compute_dtype)
     return {"blocks": blocks,
-            "cross_kv": prepare_cross_kv(blocks, cfg, text_emb),
+            "cross_kv": prepare_cross_kv(blocks, cfg, text_emb, mesh),
             "rope": rope_tables(seq_len, cfg.head_dim, dtype=cdt,
                                 device=text_emb.device)}
 
@@ -152,39 +181,55 @@ def _attend(q, k, v):
     return attention(q, k, v)
 
 
-def dit_block(params, cfg: DiTConfig, x, rope_cs: Tuple, cross_kv: Tuple,
-              keep=None):
-    """One DiT block. rope_cs = (cos, sin); cross_kv = this layer's (K, V);
-    ``keep`` this layer's cross-attention dropout keep mask
-    (``draw_keep_masks``), None for no dropout."""
-    nh = cfg.num_heads
+def _out_proj(params, x, split: bool, mesh):
+    return row_parallel(params, x, mesh) if split else dense(params, x)
 
+
+def dit_block(params, cfg: DiTConfig, x, rope_cs: Tuple, cross_kv: Tuple,
+              keep=None, mesh=None):
+    """One DiT block. rope_cs = (cos, sin); cross_kv = this layer's (K, V);
+    ``keep`` this layer's cross-attention dropout keep mask for this rank's
+    rows (``draw_keep_masks``), None for no dropout; ``mesh`` the tensor-
+    parallel mesh, None for none."""
     # self-attention with RoPE
     residual = x
     xn = layer_norm(params["norm1"], x)
     attn_p = params["attn"]
+    nh, split = _local_heads(attn_p, cfg)
+    if split and cfg.ref_compat:
+        raise ValueError("under ref_compat the self-attention has no "
+                         "out_proj to end a split: keep it whole "
+                         "(parallel.sharding.dit_param_specs with the "
+                         "config)")
     qkv = dense({"weight": attn_p["in_proj_weight"],
-                 "bias": attn_p["in_proj_bias"]}, xn)
+                 "bias": attn_p["in_proj_bias"]},
+                copy_to_model(xn, mesh) if split else xn)
     q, k, v = qkv.chunk(3, dim=-1)
-    b, s, h = q.shape
+    b, s, _ = q.shape
     cos, sin = rope_cs
-    q = apply_rope(q.reshape(b, s, nh, h // nh), cos, sin).transpose(1, 2)
-    k = apply_rope(k.reshape(b, s, nh, h // nh), cos, sin).transpose(1, 2)
+    hd = cfg.head_dim
+    q = apply_rope(q.reshape(b, s, nh, hd), cos, sin).transpose(1, 2)
+    k = apply_rope(k.reshape(b, s, nh, hd), cos, sin).transpose(1, 2)
     v = _split_heads(v, nh)
     attn_out = _merge_heads(_attend(q, k, v))
     if not cfg.ref_compat:
-        attn_out = dense(attn_p["out_proj"], attn_out)
+        attn_out = _out_proj(attn_p["out_proj"], attn_out, split, mesh)
     x = attn_out + residual  # quirk #2: the reference skips out_proj
 
     # cross-attention to the text (K/V precomputed per request)
     residual = x
     xn = layer_norm(params["norm2"], x)
+    nh, split = _local_heads(params["cross_attn"], cfg)
+    h = nh * hd
     w = params["cross_attn"]["in_proj_weight"]
     bb = params["cross_attn"]["in_proj_bias"]
-    q = _split_heads(dense({"weight": w[:h], "bias": bb[:h]}, xn), nh)
+    q = _split_heads(dense({"weight": w[:h], "bias": bb[:h]},
+                           copy_to_model(xn, mesh) if split else xn), nh)
     k, v = cross_kv
     rate = cfg.cross_attn_dropout
     if keep is not None and _dropout_mode(cfg) == "probs":
+        if split:   # this rank's heads of the [B, nh, S, St] mask
+            keep = keep[:, mesh.model_index * nh:(mesh.model_index + 1) * nh]
         # torch MHA semantics, computed inline as JAX does (not kernel A)
         scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
             / math.sqrt(q.shape[-1])
@@ -192,17 +237,21 @@ def dit_block(params, cfg: DiTConfig, x, rope_cs: Tuple, cross_kv: Tuple,
         heads = torch.matmul(p.to(v.dtype).float(), v.float()).to(x.dtype)
     else:
         heads = _attend(q, k, v)
-    cross = dense(params["cross_attn"]["out_proj"], _merge_heads(heads))
+    cross = _out_proj(params["cross_attn"]["out_proj"], _merge_heads(heads),
+                      split, mesh)
     if keep is not None and _dropout_mode(cfg) == "output":
         cross = _inverted(cross, keep, rate)
     x = cross + residual
 
-    # gated MLP
+    # gated MLP: split over the model group under a mesh
     residual = x
     xn = layer_norm(params["norm3"], x)
+    split = mesh is not None and mesh.model > 1
+    if split:
+        xn = copy_to_model(xn, mesh)
     up = F.gelu(dense(params["mlp_fc1"], xn))
     gate = torch.sigmoid(dense(params["gate"], xn))
-    return dense(params["mlp_fc2"], up * gate) + residual
+    return _out_proj(params["mlp_fc2"], up * gate, split, mesh) + residual
 
 
 _WEIGHT_GEMMS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -233,14 +282,16 @@ def _remat(cfg: DiTConfig):
 
 def ditto_forward(params, cfg: DiTConfig, x, text_emb, t, *,
                   prepared: Optional[Dict] = None,
-                  generator: Optional[torch.Generator] = None):
+                  generator: Optional[torch.Generator] = None, mesh=None):
     """Noise prediction. x: [B, S, H] noisy latents; text_emb: [B, St, Xd];
     t: [B] int. ``prepared`` is ``prepare(...)`` for this request;
     ``generator`` (on x's device) draws the cross-attention dropout masks,
     None for none (the JAX ``dropout_key``). ``cfg.remat_blocks``
-    rematerializes each block where autograd records the forward."""
+    rematerializes each block where autograd records the forward.
+    ``mesh``: the tensor-parallel mesh (see the module docstring), None for
+    the whole model."""
     if prepared is None:
-        prepared = prepare(params, cfg, text_emb, x.shape[1])
+        prepared = prepare(params, cfg, text_emb, x.shape[1], mesh)
     temb = embed(params["t_embedding"], t)
     temb = dense(params["time_embed"]["fc1"], temb)
     temb = F.silu(temb)
@@ -255,14 +306,16 @@ def ditto_forward(params, cfg: DiTConfig, x, text_emb, t, *,
     x = x.to(cdt)
     keeps = [None] * cfg.num_layers
     if generator is not None and cfg.cross_attn_dropout > 0.0:
-        keeps = draw_keep_masks(cfg, generator, x.shape[0], x.shape[1],
-                                text_emb.shape[1], x.device)
+        b = x.shape[0]
+        d, nd = (0, 1) if mesh is None else (mesh.data_index, mesh.data)
+        keeps = [k[d * b:(d + 1) * b] for k in draw_keep_masks(
+            cfg, generator, b * nd, x.shape[1], text_emb.shape[1], x.device)]
     block = dit_block
     if cfg.remat_blocks and torch.is_grad_enabled():
         block = _remat(cfg)
     for blk, ckv, keep in zip(prepared["blocks"], prepared["cross_kv"],
                               keeps):
-        x = block(blk, cfg, x, prepared["rope"], ckv, keep)
+        x = block(blk, cfg, x, prepared["rope"], ckv, keep, mesh)
 
     x = dense(params["proj_out"], x.to(x_skip.dtype))
     return x_skip + x

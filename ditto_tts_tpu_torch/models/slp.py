@@ -35,8 +35,10 @@ def init_slp_trainable(cfg: SLPConfig, codebook_size: int = 1024,
 
 def slp_forward(trainable, byt5_params, codec_params, cfg: SLPConfig,
                 byt5_cfg: byt5_mod.ByT5Config, codec_cfg: CodecConfig,
-                text_ids, text_mask, audio, padding_mask=None):
-    """Duration-class logits [B, nb_classes]."""
+                text_ids, text_mask, audio, padding_mask=None, *,
+                mesh=None):
+    """Duration-class logits [B, nb_classes]. ``mesh``: the decoder under
+    tensor parallelism (``nn/transformer.py``), None for none."""
     z_text = byt5_mod.byt5_encode(byt5_params, byt5_cfg, text_ids, text_mask)
     codes = codec_mod.codec_encode(codec_params, codec_cfg, audio,
                                    padding_mask, bandwidth_kbps=1.5)
@@ -45,7 +47,7 @@ def slp_forward(trainable, byt5_params, codec_params, cfg: SLPConfig,
     b, nq, t, d = z_audio.shape
     z_audio = z_audio.reshape(b, nq * t, d)
     h = transformer_decoder(trainable["decoder"], cfg.num_heads, z_audio,
-                            z_text, causal_self=True)
+                            z_text, causal_self=True, mesh=mesh)
     return dense(trainable["length_predictor"], h[:, -1, :])
 
 

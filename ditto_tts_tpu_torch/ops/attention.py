@@ -7,9 +7,13 @@
 ``pallas_attention_packed``: flash attention on the tensor cores in bf16,
 exact fp32 on the CUDA cores in fp32) or raises. There is no length
 switch: on the card every call, self or cross, at every length, is the
-kernel. Attention that JAX never sends to Pallas (heads wider than 128, an
-additive bias: the SLP decoder and ByT5) calls ``attention_plain``
-directly, on any device.
+kernel. Kernel A takes heads of 64 and 128; ``attention`` zero-pads a
+narrower head to the next of them (the scale stays that of the true
+width, and the padded output columns are dropped), as JAX's
+``pallas_attention`` pads every head to 128, so the tiny configurations
+(heads of 16) run on kernel A too. Attention that JAX never sends to
+Pallas (heads wider than 128, an additive bias: the SLP decoder and ByT5)
+calls ``attention_plain`` directly, on any device.
 
 Training differentiates through ``attention``: where grad mode is on and an
 operand requires grad, it runs ``_Attention``, an ``autograd.Function``
@@ -117,10 +121,29 @@ def attention_cuda(q, k, v, *, causal: bool = False,
     return o
 
 
+KERNEL_HEAD_DIMS = (64, 128)
+
+
+def head_padded(fn, q, k, v, causal, sm_scale, kv_len):
+    """``fn`` (kernel A's wrapper) on q, k and v zero-padded along the head
+    dim to the next of ``KERNEL_HEAD_DIMS``, at the unpadded width's
+    scale; the output cut back. Zero columns add nothing to Q K^T, and V's
+    zero columns give the output columns that are dropped."""
+    d = q.shape[-1]
+    dp = next(n for n in KERNEL_HEAD_DIMS if n >= d)
+    scale = 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
+    q, k, v = (torch.nn.functional.pad(t, (0, dp - d)) for t in (q, k, v))
+    return fn(q, k, v, causal=causal, sm_scale=scale, kv_len=kv_len)[
+        ..., :d]
+
+
 def _forward(q, k, v, causal, sm_scale, kv_len):
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, sm_scale=sm_scale,
                                kv_len=kv_len)
+    if q.shape[-1] < KERNEL_HEAD_DIMS[-1] and \
+            q.shape[-1] not in KERNEL_HEAD_DIMS:
+        return head_padded(attention_cuda, q, k, v, causal, sm_scale, kv_len)
     return attention_cuda(q, k, v, causal=causal, sm_scale=sm_scale,
                           kv_len=kv_len)
 

@@ -521,11 +521,13 @@ def init_nac_train_state(cfg: NACConfig, seed: int = 0,
 
 
 def init_slp_train_state(cfg: SLPConfig, codebook_size: int = 1024,
-                         seed: int = 0, device=None) -> Dict:
-    """A fresh SLP train state (embedding head, decoder, length predictor,
-    flat AdamW) on ``device``, drawn as ``models.slp.init_slp_trainable``."""
+                         seed: int = 0, device=None,
+                         flat_opt: bool = True) -> Dict:
+    """A fresh SLP train state (embedding head, decoder, length predictor;
+    flat AdamW unless ``flat_opt`` is False) on ``device``, drawn as
+    ``models.slp.init_slp_trainable``."""
     return new_train_state(_draw(slp_spec(cfg, codebook_size), seed,
-                                 device))
+                                 device), flat_opt)
 
 
 def _frozen(specs: Dict, given: Optional[Mapping[str, Any]], seed: int,

@@ -15,8 +15,15 @@ trees of ``synthesize`` and ``evaluate`` (``--ditto`` and ``--nac`` are
 checkpoints of the training CLIs).
 
 The CLIs run on ``--device`` (``cuda`` by default; ``cpu`` runs the
-kernels' plain versions). They have no mesh flags: parallelism is not
-ported yet.
+kernels' plain versions). The training CLIs take the JAX CLIs' mesh flags,
+``--mesh-data`` and ``--mesh-model``, plus ``--dist-backend`` (``nccl`` by
+default; ``gloo`` for several ranks on one card or on the CPU), and run
+one process per rank under ``python -m torch.distributed.run
+--nproc-per-node N -m ditto_tts_tpu_torch.scripts.train_ditto ...``
+(``open_mesh``, ``setup_mesh``). They keep the semantics of JAX's
+single-process mesh CLI: every rank builds the same global batches from
+the same seed, in the same order, and keeps its data rank's rows;
+``--batch-size`` must divide over ``--mesh-data``.
 """
 
 from __future__ import annotations
@@ -26,9 +33,13 @@ import argparse
 import torch
 
 from .. import resolve_device
+from ..config import MeshConfig
 from ..codec import encodec as codec_mod
 from ..models import vocoder as voc_mod
 from ..params import GeneratorParams, init_generator_params, tree_map
+from ..parallel import mesh as mesh_mod
+from ..parallel.sharding import whole_attention
+from ..parallel.train_setup import setup_mesh_training
 from ..text import byt5 as byt5_mod
 from ..text import gpt2 as gpt2_mod
 from ..train.checkpoint import load_checkpoint
@@ -50,11 +61,75 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    help="local facebook/encodec_24khz snapshot (safetensors)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (the kernels' plain versions)")
+    p.add_argument("--mesh-data", type=int, default=1,
+                   help="data-parallel mesh axis size")
+    p.add_argument("--mesh-model", type=int, default=1,
+                   help="tensor-parallel mesh axis size")
+    p.add_argument("--dist-backend", choices=("nccl", "gloo"),
+                   default="nccl",
+                   help="torch.distributed backend of a mesh (gloo for "
+                        "several ranks on one card, or on the CPU)")
 
 
 def device_of(args) -> torch.device:
     """``--device``, resolved: raises without CUDA unless it is ``cpu``."""
     return resolve_device(args.device)
+
+
+def open_mesh(args, batch_size: int):
+    """(mesh or None, this rank's device) for ``--mesh-data`` x
+    ``--mesh-model`` (None below two ranks, as JAX's ``setup_mesh``):
+    joins the launcher's process group with ``--dist-backend`` and builds
+    the mesh, which must cover the world; ``batch_size`` must divide over
+    the data axis."""
+    dev = device_of(args)
+    if args.mesh_data * args.mesh_model <= 1:
+        return None, dev
+    if batch_size % args.mesh_data:
+        raise ValueError(f"--batch-size {batch_size} does not split over "
+                         f"--mesh-data {args.mesh_data}")
+    mesh_mod.initialize_distributed(args.dist_backend)
+    mesh = mesh_mod.make_mesh(MeshConfig(data=args.mesh_data,
+                                         model=args.mesh_model))
+    return mesh, mesh_mod.local_device(dev)
+
+
+def setup_mesh(args, mesh, state, frozen, model_name, param_specs=None,
+               note=""):
+    """The JAX ``setup_mesh``: (state, frozen, shard_state, wrap). ``wrap``
+    maps a batch iterator factory to one that yields this rank's rows of
+    each global batch; everything passes through unchanged without a mesh.
+    ``param_specs`` picks the layout (default: the DiT rules;
+    ``parallel/train_setup.py``); ``note`` ends the mesh line."""
+    if mesh is None:
+        return state, frozen, None, (lambda it: it)
+    state, frozen, shard_state, shard_batch = setup_mesh_training(
+        mesh, state, frozen, param_specs)
+    if mesh.rank == 0:
+        print(f"[{model_name}] mesh {mesh.shape} ({args.dist_backend}): DP "
+              f"batches, sharded trainables; checkpoints gather on save"
+              f"{note}", flush=True)
+
+    def wrap(it_factory):
+        def it():
+            for b in it_factory():
+                yield shard_batch(b)
+        return it
+
+    return state, frozen, shard_state, wrap
+
+
+def whole_attention_note(num_heads: int, model: int,
+                         ref_compat: bool = False) -> str:
+    """The mesh line's words for attention that stays whole on every rank
+    of the model group (``parallel.sharding.whole_attention``)."""
+    if whole_attention(num_heads, model, ref_compat) is None:
+        return ""
+    if num_heads % model:
+        return (f"; attention whole on each rank ({num_heads} head(s) do "
+                f"not split over model {model}), the MLP split")
+    return ("; the self-attention whole on each rank (ref_compat: no "
+            "out_proj), the rest split")
 
 
 def imported_frozen(names, *, codec_cfg=None, encodec=None, gpt2_cfg=None,

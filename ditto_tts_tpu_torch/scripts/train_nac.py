@@ -18,8 +18,9 @@ from ..data.mls import MLSDataset, batches, default_buckets
 from ..params import init_nac_frozen, init_nac_train_state
 from ..train import steps as steps_mod
 from ..train.trainer import Trainer
-from ._common import (add_common_args, device_of, gpt2_tokenizer,
-                      imported_frozen)
+from ..parallel.sharding import replicated_specs
+from ._common import (add_common_args, gpt2_tokenizer, imported_frozen,
+                      open_mesh, setup_mesh)
 
 
 def main(argv=None):
@@ -32,9 +33,10 @@ def main(argv=None):
     p.add_argument("--ref-compat", action="store_true",
                    help="reference VQ semantics (argmin only, no STE)")
     args = p.parse_args(argv)
-    dev = device_of(args)
 
     nac_cfg = NACConfig(lambda_factor=args.lambda_factor)
+    batch_size = args.batch_size or nac_cfg.batch_size
+    mesh, dev = open_mesh(args, batch_size)
     codec_cfg, gpt2_cfg = CodecConfig(), GPT2Config()
     frozen = init_nac_frozen(
         codec_cfg, gpt2_cfg, seed=args.seed, device=dev,
@@ -43,7 +45,6 @@ def main(argv=None):
                               gpt2=args.gpt2))
 
     tokenizer = gpt2_tokenizer(args)
-    batch_size = args.batch_size or nac_cfg.batch_size
     buckets = default_buckets()
 
     def make_ds(path):
@@ -55,21 +56,28 @@ def main(argv=None):
 
     _, step_fn, eval_fn = steps_mod.build_nac_train_step(
         nac_cfg, codec_cfg, gpt2_cfg, ref_compat=args.ref_compat,
-        learning_rate=args.learning_rate, device=dev)
+        learning_rate=args.learning_rate, device=dev, mesh=mesh)
     state = init_nac_train_state(nac_cfg, seed=args.seed + 1, device=dev)
+    # pure data parallelism: the NAC's trainables (embedding head, VQ
+    # codebooks) are small and replicate, as in the JAX CLI
+    state, frozen, shard_state, wrap = setup_mesh(
+        args, mesh, state, frozen, "train_nac",
+        replicated_specs(state["params"]))
 
     Trainer(step_fn, eval_fn).fit(
         state, frozen,
-        train_batches=lambda: batches(train_ds, batch_size, buckets=buckets,
-                                      seed=args.seed),
-        val_batches=(lambda: batches(val_ds, batch_size, buckets=buckets,
-                                     shuffle=False)) if val_ds else None,
+        train_batches=wrap(lambda: batches(train_ds, batch_size,
+                                           buckets=buckets, seed=args.seed)),
+        val_batches=wrap(lambda: batches(val_ds, batch_size, buckets=buckets,
+                                         shuffle=False)) if val_ds else None,
         epochs=args.epochs,
         generator=torch.Generator().manual_seed(args.seed + 3),
         model_name="NAC",
         learning_rate=args.learning_rate or nac_cfg.learning_rate,
         checkpoint_dir=args.checkpoint_dir, checkpoint_interval=5,
-        log_path=args.log_path)
+        log_path=args.log_path, shard_state=shard_state)
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -9,6 +9,13 @@ for letter as JAX's ``_flatten`` does, with the same dtypes (count and
 step int32). A checkpoint written by either package restores in the other.
 No pickle: ``convert_torch_checkpoint`` reads reference ``.pth`` files
 with ``torch.load(weights_only=True)``.
+
+Under a (data, model) mesh ``save_checkpoint`` is collective: given the
+mesh and the state's specs (``parallel/train_setup.py``), every rank joins
+the gather of the full state and only rank 0 writes (JAX's
+``process_index() != 0`` guard), so a file written by a tensor-parallel
+run has JAX's keys and full shapes and loads unchanged into one process,
+of either package.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.sharding import gather_tree
 from ..params import tree_paths, tree_unflatten
 
 _SEP = "//"
@@ -91,15 +99,23 @@ def _meta_path(path: str) -> str:
 
 
 def save_checkpoint(path: str, state: Any,
-                    metadata: Optional[Dict] = None) -> None:
+                    metadata: Optional[Dict] = None, *, mesh=None,
+                    specs=None) -> None:
     """Write the state tree (tensors or arrays, any device) to ``path``
-    (.npz) and ``metadata`` to ``path`` with ``.json``."""
-    flat = _flatten(state)
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    np.savez_compressed(_npz_path(path), **flat)
-    if metadata is not None:
-        with open(_meta_path(path), "w") as f:
-            json.dump(metadata, f)
+    (.npz) and ``metadata`` to ``path`` with ``.json``. With a ``mesh``
+    (and the state's ``specs``) every rank must call it: the full state is
+    gathered, rank 0 writes, and all return once the file is there."""
+    if mesh is not None:
+        state = gather_tree(mesh, state, specs)
+    if mesh is None or mesh.rank == 0:
+        flat = _flatten(state)
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        np.savez_compressed(_npz_path(path), **flat)
+        if metadata is not None:
+            with open(_meta_path(path), "w") as f:
+                json.dump(metadata, f)
+    if mesh is not None:
+        mesh.barrier()
 
 
 def _read(path: str) -> Dict[str, np.ndarray]:
@@ -122,9 +138,11 @@ def load_checkpoint(path: str) -> Tuple[Any, Optional[Dict]]:
 
 def restore_into(template: Any, path: str) -> Any:
     """Each stored array placed at the template leaf with the same path,
-    as a tensor of the template leaf's dtype on its device; the template's
-    dicts and lists keep their structure. Missing or extra paths raise
-    KeyError, a shape mismatch ValueError (the JAX ``restore_into``)."""
+    as a tensor of the template leaf's dtype on its device (the CPU for a
+    leaf on the ``meta`` device: a template of shapes alone); the
+    template's dicts and lists keep their structure. Missing or extra paths
+    raise KeyError, a shape mismatch ValueError (the JAX
+    ``restore_into``)."""
     flat = _read(path)
     items = list(tree_paths(template))
     paths = [_key(p) for p, _ in items]
@@ -144,7 +162,8 @@ def restore_into(template: Any, path: str) -> Any:
             raise ValueError(f"shape mismatch at {p}: checkpoint "
                              f"{arr.shape} vs template {tuple(like.shape)}")
         values.append(torch.from_numpy(np.array(arr, copy=True)).to(
-            dtype=like.dtype, device=like.device))
+            dtype=like.dtype, device="cpu" if like.device.type == "meta"
+            else like.device))
     return tree_unflatten(template, values)
 
 

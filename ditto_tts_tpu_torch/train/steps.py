@@ -41,6 +41,18 @@ applied after the moment update, bias correction from an int32 count),
 over one flat fp32 vector in ``ravel_tree`` order (``flat``, JAX's
 ``make_adamw(flat=True)``) or leaf by leaf. ``torch.optim.AdamW`` is not
 used: its state layout is not JAX's, and it decays before the step.
+
+Under a mesh (``mesh=``, a ``parallel.mesh.Mesh``; None for one process)
+the state is this rank's share (``parallel/train_setup.py``) and the
+batch its rows of the global batch. The gradient averages over the data
+group (one all-reduce of every gradient raveled into one vector) and so do
+the metrics: every loss here is a plain mean over equal per-rank rows, so
+the mean of the ranks' means is the global mean, as JAX reports it. The
+DiTTo step draws t, the noise and the dropout masks for the global batch
+and keeps its rows (``t=`` / ``noise=`` are the global draws too), so a
+mesh step takes the draws of one process stepping the global batch; the
+DiT and the SLP decoder run tensor-parallel over the model group
+(``models/dit.py``, ``nn/transformer.py``).
 """
 
 from __future__ import annotations
@@ -126,11 +138,30 @@ def _placed(dev: torch.device, state, frozen, batch) -> Dict:
     return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
 
 
-def _apply_gradient(opt: AdamW, state, loss_fn) -> Tuple[Dict, Dict]:
+def _data_mean(tensors, mesh) -> list:
+    """Each tensor's mean over the mesh's data group, from one all-reduce
+    of them raveled into one fp32 vector (the identity without one)."""
+    tensors = list(tensors)
+    if mesh is None or mesh.data == 1:
+        return tensors
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    flat = mesh.all_reduce(flat, "data") / mesh.data
+    parts = torch.split(flat, [t.numel() for t in tensors])
+    return [p.view(t.shape).to(t.dtype) for p, t in zip(parts, tensors)]
+
+
+def _metrics_mean(metrics: Dict, mesh) -> Dict:
+    return dict(zip(metrics, _data_mean((v.detach() for v in
+                                         metrics.values()), mesh)))
+
+
+def _apply_gradient(opt: AdamW, state, loss_fn, mesh=None
+                    ) -> Tuple[Dict, Dict]:
     """One optimizer step: ``loss_fn(params) -> (loss, metrics)`` is
     differentiated with respect to every parameter leaf (zeros for a leaf
-    it does not read, as ``jax.grad`` gives them), AdamW updates the
-    state, ``step`` adds one; the metrics come back detached."""
+    it does not read, as ``jax.grad`` gives them), the gradient averaged
+    over the data group, AdamW updates the state, ``step`` adds one; the
+    metrics come back detached, averaged over the data group."""
     params = tree_map(lambda p: p.detach().requires_grad_(), state["params"])
     leaves = [leaf for _, leaf in tree_leaves(params)]
     with torch.enable_grad():
@@ -138,11 +169,10 @@ def _apply_gradient(opt: AdamW, state, loss_fn) -> Tuple[Dict, Dict]:
         grad_leaves = torch.autograd.grad(loss, leaves, allow_unused=True,
                                           materialize_grads=True)
     new_params, opt_state = opt.update(
-        tree_unflatten(params, grad_leaves), state["opt_state"],
-        tree_map(torch.detach, params))
+        tree_unflatten(params, _data_mean(grad_leaves, mesh)),
+        state["opt_state"], tree_map(torch.detach, params))
     return ({"params": new_params, "opt_state": opt_state,
-             "step": state["step"] + 1},
-            {k: v.detach() for k, v in metrics.items()})
+             "step": state["step"] + 1}, _metrics_mean(metrics, mesh))
 
 
 def build_ditto_train_step(dit_cfg: DiTConfig, codec_cfg: CodecConfig,
@@ -150,7 +180,7 @@ def build_ditto_train_step(dit_cfg: DiTConfig, codec_cfg: CodecConfig,
                            learning_rate: Optional[float] = None,
                            weight_decay: float = 1e-6,
                            encode_dtype: str = "float32",
-                           flat_opt: bool = True, device=None):
+                           flat_opt: bool = True, device=None, mesh=None):
     """(init_state, step_fn, eval_fn) for DiTTo diffusion training:
 
       init_state(dit_params) -> {"params", "opt_state", "step"}
@@ -165,7 +195,9 @@ def build_ditto_train_step(dit_cfg: DiTConfig, codec_cfg: CodecConfig,
     ``device`` is resolved by ``resolve_device``: the state and the frozen
     tree must lie there, the batch is moved there. ``generator`` (on that
     device) draws t, the noise and the dropout masks; None draws from the
-    default generator and drops nothing."""
+    default generator and drops nothing. ``mesh``: this rank's share of a
+    (data, model) mesh (see the module docstring); tensor parallelism needs
+    ``flat_opt=False``."""
     lr = learning_rate if learning_rate is not None else dit_cfg.learning_rate
     opt = make_adamw(lr, weight_decay, flat=flat_opt)
     if dit_cfg.ref_compat and dit_cfg.prediction_type != "eps":
@@ -201,18 +233,22 @@ def build_ditto_train_step(dit_cfg: DiTConfig, codec_cfg: CodecConfig,
         return latents, gpt2_mod.embed_tokens(frozen["gpt2"], text_ids)
 
     def loss_fn(dit_params, latents, text_emb, generator, t, noise):
+        # draws for the global batch; this rank keeps its rows
         b = latents.shape[0]
+        d, nd = (0, 1) if mesh is None else (mesh.data_index, mesh.data)
         if t is None:
-            t = torch.randint(0, dit_cfg.diffusion_steps, (b,),
+            t = torch.randint(0, dit_cfg.diffusion_steps, (b * nd,),
                               generator=generator, device=dev)
         if noise is None:
-            noise = torch.randn(latents.shape, generator=generator,
-                                dtype=latents.dtype, device=dev)
-        t, noise = t.to(dev), noise.to(dev)
+            noise = torch.randn((b * nd,) + tuple(latents.shape[1:]),
+                                generator=generator, dtype=latents.dtype,
+                                device=dev)
+        t, noise = t.to(dev)[d * b:(d + 1) * b], \
+            noise.to(dev)[d * b:(d + 1) * b]
         noisy = q_sample(sc, latents, t, noise,
                          ref_compat=dit_cfg.ref_compat)
         pred = dit_mod.ditto_forward(dit_params, dit_cfg, noisy, text_emb, t,
-                                     generator=generator)
+                                     generator=generator, mesh=mesh)
         if dit_cfg.prediction_type == "eps":
             target = noise
         elif dit_cfg.prediction_type == "x0":
@@ -233,35 +269,37 @@ def build_ditto_train_step(dit_cfg: DiTConfig, codec_cfg: CodecConfig,
             loss = loss_fn(params, latents, text_emb, generator, t, noise)
             return loss, {"loss": loss}
 
-        return _apply_gradient(opt, state, loss_of)
+        return _apply_gradient(opt, state, loss_of, mesh)
 
     @torch.no_grad()
     def eval_fn(state, frozen, batch, generator=None, *, t=None,
                 noise=None) -> Dict:
         batch = _placed(dev, state, frozen, batch)
         latents, text_emb = encode_batch(frozen, batch)
-        return {"loss": loss_fn(state["params"], latents, text_emb,
-                                generator, t, noise)}
+        return _metrics_mean({"loss": loss_fn(
+            state["params"], latents, text_emb, generator, t, noise)}, mesh)
 
     return init_state, step_fn, eval_fn
 
 
-def _step_fns(dev: torch.device, opt: AdamW, loss_fn):
+def _step_fns(dev: torch.device, opt: AdamW, loss_fn, mesh):
     """(init_state, step_fn, eval_fn) around ``loss_fn(trainable, frozen,
     batch) -> (loss, metrics)``: the NAC's and the SLP's shape, whose
     steps draw nothing (the generator is not read)."""
     def init_state(trainable) -> Dict:
-        return new_train_state(tree_map(lambda p: p.to(dev), trainable))
+        return new_train_state(tree_map(lambda p: p.to(dev), trainable),
+                               opt.flat)
 
     def step_fn(state, frozen, batch, generator=None) -> Tuple[Dict, Dict]:
         batch = _placed(dev, state, frozen, batch)
         return _apply_gradient(opt, state,
-                               lambda p: loss_fn(p, frozen, batch))
+                               lambda p: loss_fn(p, frozen, batch), mesh)
 
     @torch.no_grad()
     def eval_fn(state, frozen, batch, generator=None) -> Dict:
         batch = _placed(dev, state, frozen, batch)
-        return loss_fn(state["params"], frozen, batch)[1]
+        return _metrics_mean(loss_fn(state["params"], frozen, batch)[1],
+                             mesh)
 
     return init_state, step_fn, eval_fn
 
@@ -269,7 +307,8 @@ def _step_fns(dev: torch.device, opt: AdamW, loss_fn):
 def build_nac_train_step(nac_cfg: NACConfig, codec_cfg: CodecConfig,
                          gpt2_cfg: GPT2Config, *, ref_compat: bool = False,
                          learning_rate: Optional[float] = None,
-                         weight_decay: float = 1e-6, device=None):
+                         weight_decay: float = 1e-6, device=None,
+                         mesh=None):
     """(init_state, step_fn, eval_fn) for NAC training:
 
       init_state(trainable) -> {"params", "opt_state", "step"}
@@ -281,7 +320,8 @@ def build_nac_train_step(nac_cfg: NACConfig, codec_cfg: CodecConfig,
     ``audio``, ``text_ids``, ``text_mask`` and an optional
     ``padding_mask``. The metrics: ``total_loss``, ``lm_loss``,
     ``reconstruction_loss``, and without ``ref_compat`` ``codebook_loss``
-    and ``commitment_loss``."""
+    and ``commitment_loss``. ``mesh``: data parallelism (the NAC's
+    trainables are replicated, as JAX's CLI keeps them)."""
     lr = learning_rate if learning_rate is not None else nac_cfg.learning_rate
 
     def loss_fn(trainable, frozen, batch):
@@ -293,31 +333,35 @@ def build_nac_train_step(nac_cfg: NACConfig, codec_cfg: CodecConfig,
                                    if v.dim() == 0}
 
     return _step_fns(resolve_device(device), make_adamw(lr, weight_decay),
-                     loss_fn)
+                     loss_fn, mesh)
 
 
 def build_slp_train_step(slp_cfg: SLPConfig, codec_cfg: CodecConfig,
                          byt5_cfg: ByT5Config, *,
                          learning_rate: Optional[float] = None,
-                         weight_decay: float = 1e-6, device=None):
+                         weight_decay: float = 1e-6, flat_opt: bool = True,
+                         device=None, mesh=None):
     """(init_state, step_fn, eval_fn) for SLP training, with the signatures
     of ``build_nac_train_step``. ``trainable`` holds ``embedding_head``,
     ``decoder`` and ``length_predictor``, ``frozen`` ``codec`` and
     ``byt5``; ``batch`` holds ``audio``, ``text_ids``, ``text_mask``,
     ``label`` (the duration class) and an optional ``padding_mask``. The
-    metrics: ``loss`` and ``accuracy``."""
+    metrics: ``loss`` and ``accuracy``. ``mesh``: data and tensor
+    parallelism (the decoder's feed-forward splits over the model group;
+    its one head stays whole), which needs ``flat_opt=False``."""
     lr = learning_rate if learning_rate is not None else slp_cfg.learning_rate
 
     def loss_fn(trainable, frozen, batch):
         logits = slp_mod.slp_forward(
             trainable, frozen["byt5"], frozen["codec"], slp_cfg, byt5_cfg,
             codec_cfg, batch["text_ids"], batch["text_mask"], batch["audio"],
-            batch.get("padding_mask"))
+            batch.get("padding_mask"), mesh=mesh)
         labels = batch["label"].long()
         logp = torch.log_softmax(logits.float(), dim=-1)
         loss = -logp.gather(-1, labels[:, None])[:, 0].mean()
         acc = (logits.argmax(dim=-1) == labels).float().mean()
         return loss, {"loss": loss, "accuracy": acc}
 
-    return _step_fns(resolve_device(device), make_adamw(lr, weight_decay),
-                     loss_fn)
+    return _step_fns(resolve_device(device),
+                     make_adamw(lr, weight_decay, flat=flat_opt), loss_fn,
+                     mesh)

@@ -13,6 +13,15 @@ to ``{model}_best.npz`` (the reference's quirk #10, a best loss started at
 0, corrected) and the returned state, the best one if there was a
 validation loss, to ``{model}_final.npz``. ``resume`` restarts from
 ``latest_checkpoint``.
+
+Under a (data, model) mesh the trainer takes ``shard_state`` (the
+``StateSharding`` of ``parallel.train_setup.setup_mesh_training``), as
+JAX's does: the state is this rank's share, every checkpoint is written
+collectively (rank 0 writes the gathered state), a restored full state (a
+resume, or the best one at the end) is sliced again, only rank 0 writes
+the log and prints, and every rank takes rank 0's validation loss to pick
+the best state. Every rank draws the same seeds, so the steps' global
+draws agree.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ class Trainer:
     def __init__(self, step_fn: Callable, eval_fn: Optional[Callable] = None):
         self.step_fn = step_fn
         self.eval_fn = eval_fn
+        self.shard_state = None
         self.history: Dict = {
             "params": {"lr": None, "epochs": None, "model_name": None},
             "train": {"loss": [], "metrics": []},
@@ -50,10 +60,16 @@ class Trainer:
             learning_rate: Optional[float] = None,
             checkpoint_dir: str = "checkpoints",
             checkpoint_interval: int = 5, resume: bool = True,
-            log_path: Optional[str] = None, verbose: bool = True):
+            log_path: Optional[str] = None, verbose: bool = True,
+            shard_state: Optional[Callable] = None):
         """Train ``epochs`` epochs (less those a resumed checkpoint has
         done); returns (final state, history). ``generator`` is a CPU
-        ``torch.Generator``; the batches are on the state's device."""
+        ``torch.Generator``; the batches are on the state's device (this
+        rank's rows under a mesh). ``shard_state``: see the module
+        docstring."""
+        self.shard_state = shard_state
+        lead = shard_state is None or shard_state.mesh.rank == 0
+        verbose = verbose and lead
         self.history["params"].update(
             {"lr": learning_rate, "epochs": epochs, "model_name": model_name})
 
@@ -61,7 +77,7 @@ class Trainer:
         if resume:
             ckpt = latest_checkpoint(checkpoint_dir, prefix=model_name)
             if ckpt is not None:
-                state = restore_into(state, ckpt)
+                state = self._restore(state, ckpt)
                 meta = load_metadata(ckpt)
                 if meta:
                     start_epoch = int(meta.get("epoch", 0))
@@ -72,7 +88,7 @@ class Trainer:
 
         best_loss = float("inf")
         best_path = None
-        log_f = open(log_path, "a") if log_path else None
+        log_f = open(log_path, "a") if log_path and lead else None
         try:
             for epoch in range(start_epoch, epochs):
                 t0 = time.time()
@@ -104,6 +120,9 @@ class Trainer:
                           f"({time.time() - t0:.1f}s)")
 
                 vloss = val_metrics.get("loss")
+                if vloss is not None and shard_state is not None:
+                    vloss = shard_state.mesh.agree(vloss,
+                                                   shard_state.device)
                 if vloss is not None and vloss < best_loss:
                     # the best state lives on disk, not as a second copy
                     # of the train state in device memory
@@ -118,9 +137,15 @@ class Trainer:
                 log_f.close()
 
         final = state if best_path is None else \
-            restore_into(state, best_path)
+            self._restore(state, best_path)
         self._save(checkpoint_dir, model_name, "final", final)
         return final, self.history
+
+    def _restore(self, state, path):
+        if self.shard_state is None:
+            return restore_into(state, path)
+        return self.shard_state(restore_into(
+            self.shard_state.full_like(state), path))
 
     # ------------------------------------------------------------------
 
@@ -150,6 +175,9 @@ class Trainer:
         path = os.path.join(checkpoint_dir, f"{model_name}_{tag}.npz")
         meta = {"epoch": epoch if isinstance(epoch, int) else None,
                 "history": self.history}
-        save_checkpoint(path, state, metadata=meta)
+        sh = self.shard_state
+        save_checkpoint(path, state, metadata=meta,
+                        mesh=None if sh is None else sh.mesh,
+                        specs=None if sh is None else sh.specs)
         return path
 

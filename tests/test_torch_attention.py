@@ -100,3 +100,39 @@ def test_attention_bf16_matches_pallas_bf16():
                           tt(v).bfloat16())
     assert got.dtype == torch.bfloat16
     assert_close(got, want, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("d,causal,kv_len", [(16, False, None),
+                                             (32, True, None),
+                                             (80, False, 9)])
+def test_narrow_heads_pad_to_the_kernel_widths(monkeypatch, d, causal,
+                                               kv_len):
+    """Kernel A takes heads of 64 and 128; ``attention`` zero-pads a
+    narrower head to the next of them at the true width's scale and cuts
+    the output back, as JAX's ``pallas_attention`` pads to 128. The
+    padded math equals the unpadded plain version and JAX's
+    ``sdpa_reference``; on a device other than the CPU (here ``meta``) the
+    kernel's wrapper is called with the padded width."""
+    from ditto_tts_tpu_torch.ops import attention as A
+    q, k, v = _qkv(2, 3, 11, 13, d, seed=d)
+    got = A.head_padded(A.attention_plain, tt(q), tt(k), tt(v), causal, None,
+                        kv_len)
+    want = attention_plain(tt(q), tt(k), tt(v), causal=causal, kv_len=kv_len)
+    assert got.shape == want.shape
+    assert_close(got, want, rtol=1e-5, atol=1e-6)
+    kvl = 13 if kv_len is None else kv_len
+    ref = sdpa_reference(jx(q), jx(k[:, :, :kvl]), jx(v[:, :, :kvl]),
+                         causal=causal)
+    assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+    seen = []
+
+    def wrapper(q, k, v, *, causal=False, sm_scale=None, kv_len=None):
+        seen.append((q.shape[-1], sm_scale, kv_len))
+        return torch.empty(q.shape, device=q.device)
+
+    monkeypatch.setattr(A, "attention_cuda", wrapper)
+    meta = [torch.empty(t.shape, device="meta") for t in (q, k, v)]
+    out = attention(*meta, causal=causal, kv_len=kv_len)
+    assert out.shape == (2, 3, 11, d)
+    assert seen == [(64 if d < 64 else 128, 1.0 / np.sqrt(d), kv_len)]
