@@ -2280,7 +2280,7 @@ def eval_phase(torch, np, cfg, params_cpu, dev, card, rec):
                                                      gpt2_tokenizer)
     from ditto_tts_tpu_torch.text.s2t_tokenizer import S2TTokenizer
     from ditto_tts_tpu_torch.train.checkpoint import _flatten
-    from ditto_tts_tpu_torch.utils.profiling import annotate, trace
+    from ditto_tts_tpu_torch.utils.profiling import span, trace
     from ditto_tts_tpu_torch.utils.smoke import orthogonal_reinit
     from ditto_tts_tpu_torch.utils.weights import load_state_dict
 
@@ -2492,16 +2492,19 @@ def eval_phase(torch, np, cfg, params_cpu, dev, card, rec):
         out["batches"], out["utterances"] = per_batch, per_utt
         out["asr_attention_calls"] = per_decode
 
-        # utils/profiling.py on the card: a named range and the device's
-        # kernels in the Chrome trace of one ECAPA embedding
+        # utils/profiling.py on the card: a span, and the device's kernels
+        # in the Chrome trace of one ECAPA embedding
         clip = ds[0]["audio"]
         with trace(str(tmp / "trace")):
-            with annotate("ecapa_embed"):
+            with span("ecapa_embed"):
                 embed(clip, len(clip))
         events = json.loads((tmp / "trace" / "trace.json").read_text())[
             "traceEvents"]
         dev_events = [e for e in events if e.get("cat") == "kernel"]
-        named = any(e.get("name") == "ecapa_embed" for e in events)
+        spans = json.loads((tmp / "trace" / "spans.json").read_text())
+        named = any(e.get("name") == "ecapa_embed" for e in events) and \
+            [s["name"] for s in spans if s["parent"] is None] == \
+            ["ecapa_embed"]
         if not named or (dev.type == "cuda" and not dev_events):
             fail(f"profiling.trace: {len(dev_events)} kernel events, the "
                  f"named range {'present' if named else 'missing'}")

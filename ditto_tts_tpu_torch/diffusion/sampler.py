@@ -9,7 +9,8 @@ re-derived from the cumprod ratio. The K-step loop is a Python loop; the
 per-step coefficients are fp32 scalars, as in JAX. Both samplers take one
 noise draw per step (DDIM too, even where sigma is 0, as JAX draws from
 ``fold_in(key, i)`` every step), from a ``torch.Generator`` or supplied as
-``noise_seq``.
+``noise_seq``. Each iteration is a ``sampler.step`` span (attr ``step``, the
+loop index; ``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .schedule import NoiseSchedule
 
 
@@ -77,21 +79,23 @@ def ddpm_sample(model_fn: Callable, x_init, schedule: NoiseSchedule,
     x = x_init
     batch = x.shape[0]
     for i in range(taus.shape[0]):
-        t = int(taus[i])
-        abar_t, beta_t, alpha_t = abar[i], beta[i], alpha[i]
-        t_vec = torch.full((batch,), t, dtype=torch.int64, device=x.device)
-        eps = to_eps(model_fn(x, t_vec), x, abar_t, prediction_type)
-        if clip_denoised is not None:
-            eps = _clip_eps(x, eps, abar_t, clip_denoised)
-        mean = (x - (1.0 - alpha_t) / torch.sqrt(1.0 - abar_t) * eps) \
-            / torch.sqrt(alpha_t)
-        if noise_seq is None:
-            z = torch.randn(x.shape, generator=generator, dtype=x.dtype,
-                            device=x.device)
-        else:
-            z = noise_seq[i]
-        nonzero = 1.0 if t > 0 else 0.0
-        x = mean + nonzero * torch.sqrt(beta_t) * z
+        with span("sampler.step", step=i):
+            t = int(taus[i])
+            abar_t, beta_t, alpha_t = abar[i], beta[i], alpha[i]
+            t_vec = torch.full((batch,), t, dtype=torch.int64,
+                               device=x.device)
+            eps = to_eps(model_fn(x, t_vec), x, abar_t, prediction_type)
+            if clip_denoised is not None:
+                eps = _clip_eps(x, eps, abar_t, clip_denoised)
+            mean = (x - (1.0 - alpha_t) / torch.sqrt(1.0 - abar_t) * eps) \
+                / torch.sqrt(alpha_t)
+            if noise_seq is None:
+                z = torch.randn(x.shape, generator=generator, dtype=x.dtype,
+                                device=x.device)
+            else:
+                z = noise_seq[i]
+            nonzero = 1.0 if t > 0 else 0.0
+            x = mean + nonzero * torch.sqrt(beta_t) * z
     return x
 
 
@@ -109,23 +113,26 @@ def ddim_sample(model_fn: Callable, x_init, schedule: NoiseSchedule,
     x = x_init
     batch = x.shape[0]
     for i in range(taus.shape[0]):
-        t = int(taus[i])
-        abar_t, abar_p = abar[i], abar_prev[i]
-        t_vec = torch.full((batch,), t, dtype=torch.int64, device=x.device)
-        eps = to_eps(model_fn(x, t_vec), x, abar_t, prediction_type)
-        x0 = (x - torch.sqrt(1.0 - abar_t) * eps) / torch.sqrt(abar_t)
-        if clip_denoised is not None:
-            x0 = torch.clamp(x0, -clip_denoised, clip_denoised)
-            eps = (x - torch.sqrt(abar_t) * x0) / torch.sqrt(1.0 - abar_t)
-        sigma = eta * torch.sqrt((1.0 - abar_p) / (1.0 - abar_t)) \
-            * torch.sqrt(1.0 - abar_t / abar_p)
-        dir_xt = torch.sqrt(torch.clamp(1.0 - abar_p - sigma ** 2, min=0.0)) \
-            * eps
-        if noise_seq is None:
-            z = torch.randn(x.shape, generator=generator, dtype=x.dtype,
-                            device=x.device)
-        else:
-            z = noise_seq[i]
-        nonzero = 1.0 if t > 0 else 0.0
-        x = torch.sqrt(abar_p) * x0 + dir_xt + nonzero * sigma * z
+        with span("sampler.step", step=i):
+            t = int(taus[i])
+            abar_t, abar_p = abar[i], abar_prev[i]
+            t_vec = torch.full((batch,), t, dtype=torch.int64,
+                               device=x.device)
+            eps = to_eps(model_fn(x, t_vec), x, abar_t, prediction_type)
+            x0 = (x - torch.sqrt(1.0 - abar_t) * eps) / torch.sqrt(abar_t)
+            if clip_denoised is not None:
+                x0 = torch.clamp(x0, -clip_denoised, clip_denoised)
+                eps = (x - torch.sqrt(abar_t) * x0) \
+                    / torch.sqrt(1.0 - abar_t)
+            sigma = eta * torch.sqrt((1.0 - abar_p) / (1.0 - abar_t)) \
+                * torch.sqrt(1.0 - abar_t / abar_p)
+            dir_xt = torch.sqrt(torch.clamp(1.0 - abar_p - sigma ** 2,
+                                            min=0.0)) * eps
+            if noise_seq is None:
+                z = torch.randn(x.shape, generator=generator, dtype=x.dtype,
+                                device=x.device)
+            else:
+                z = noise_seq[i]
+            nonzero = 1.0 if t > 0 else 0.0
+            x = torch.sqrt(abar_p) * x0 + dir_xt + nonzero * sigma * z
     return x

@@ -21,6 +21,12 @@ the frames past the prediction are zeroed (quirk #5 corrected);
 
 Entry points run on ``cuda`` unless built with ``device="cpu"``; inputs are
 moved to that device, and the parameters must already be there.
+
+Spans (``utils/profiling.py``, recorded inside a ``recording()`` block): a
+request is ``request`` (attrs batch, frames) over ``encode`` or ``slp``,
+``sampler`` (batch, frames, steps) over one ``sampler.step`` a step, ``vq``,
+``codec_decode``, ``mel`` and ``vocoder``; each sits in the function the
+entry points and the stage functions share.
 """
 
 from __future__ import annotations
@@ -42,41 +48,62 @@ from ..models import vocoder as voc_mod
 from ..ops.mel import get_mel_spectrogram
 from ..params import GeneratorParams
 from ..text import gpt2 as gpt2_mod
+from ..utils.profiling import span
 
 
 def encode_prompt_latents(params: GeneratorParams, cfg: PipelineConfig,
                           audio, padding_mask=None):
     """Waveform -> channel-meaned latents [B, T <= max_token_length, H]."""
-    latents, _ = nac_mod.audio_encoder(
-        {"embedding_head": params.embedding_head}, params.codec, cfg.codec,
-        audio, padding_mask)                               # [B, nq, T, H]
-    return latents[:, :, :cfg.dit.max_token_length].mean(dim=1)
+    with span("encode"):
+        latents, _ = nac_mod.audio_encoder(
+            {"embedding_head": params.embedding_head}, params.codec,
+            cfg.codec, audio, padding_mask)                # [B, nq, T, H]
+        return latents[:, :, :cfg.dit.max_token_length].mean(dim=1)
+
+
+def _codec_decode(params: GeneratorParams, cfg: PipelineConfig, indices,
+                  output_length: int):
+    with span("codec_decode"):
+        return codec_mod.codec_decode(params.codec, cfg.codec, indices,
+                                      output_length=output_length)
 
 
 def _mel(cfg: PipelineConfig, wav):
     v = cfg.vocoder
-    return get_mel_spectrogram(
-        wav, sample_rate=v.sampling_rate, n_fft=v.n_fft, num_mels=v.num_mels,
-        hop=v.hop_size, win_size=v.win_size, fmin=v.fmin, fmax=v.fmax)
+    with span("mel"):
+        return get_mel_spectrogram(
+            wav, sample_rate=v.sampling_rate, n_fft=v.n_fft,
+            num_mels=v.num_mels, hop=v.hop_size, win_size=v.win_size,
+            fmin=v.fmin, fmax=v.fmax)
+
+
+def _vocode(params: GeneratorParams, cfg: PipelineConfig, mel):
+    with span("vocoder"):
+        return voc_mod.bigvgan_forward(params.vocoder, cfg.vocoder, mel)[:, 0]
+
+
+def _frames(cfg: PipelineConfig, samples: int) -> int:
+    """The latent frames a prompt of ``samples`` gives the DiT."""
+    return min(-(-samples // cfg.codec.hop_length), cfg.dit.max_token_length)
 
 
 def refined_to_indices(params: GeneratorParams, refined, *,
                        ref_exact: bool = False):
     """Refined latents [B, T, H] -> VQ indices [B, 2, T] (quirk #8: the
     latents are repeated to the 2 codebook channels)."""
-    stacked = refined[:, None].expand(-1, 2, -1, -1)
-    return rvq_mod.vq_indices(params.vector_quantizer, stacked,
-                              ref_exact=ref_exact)
+    with span("vq"):
+        stacked = refined[:, None].expand(-1, 2, -1, -1)
+        return rvq_mod.vq_indices(params.vector_quantizer, stacked,
+                                  ref_exact=ref_exact)
 
 
 def indices_to_waveform(params: GeneratorParams, cfg: PipelineConfig,
                         indices, output_length: int, *,
                         return_intermediates: bool = False):
     """VQ indices -> codec decode -> mel -> BigVGAN waveform [B, L']."""
-    wav = codec_mod.codec_decode(params.codec, cfg.codec, indices,
-                                 output_length=output_length)
+    wav = _codec_decode(params, cfg, indices, output_length)
     mel = _mel(cfg, wav[:, 0])
-    out = voc_mod.bigvgan_forward(params.vocoder, cfg.vocoder, mel)[:, 0]
+    out = _vocode(params, cfg, mel)
     if return_intermediates:
         return out, {"codec_wav": wav, "mel": mel}
     return out
@@ -103,21 +130,24 @@ def _sample(params, cfg: PipelineConfig, schedule, taus, x_init, text_emb,
     """The sampler over the DiT; ``clip`` applies ``cfg.sampler.clip_denoised``
     (the recorded form passes False: JAX's reference-parity path has no
     clip)."""
-    prep = dit_mod.prepare(params.dit, cfg.dit, text_emb, x_init.shape[1])
+    with span("sampler", batch=x_init.shape[0], frames=x_init.shape[1],
+              steps=len(taus)):
+        prep = dit_mod.prepare(params.dit, cfg.dit, text_emb,
+                               x_init.shape[1])
 
-    def model_fn(x, t):
-        return dit_mod.ditto_forward(params.dit, cfg.dit, x, text_emb, t,
-                                     prepared=prep)
+        def model_fn(x, t):
+            return dit_mod.ditto_forward(params.dit, cfg.dit, x, text_emb, t,
+                                         prepared=prep)
 
-    common = dict(noise_seq=noise_seq, generator=generator,
-                  clip_denoised=cfg.sampler.clip_denoised if clip else None,
-                  prediction_type=cfg.dit.prediction_type)
-    if kind == "ddim":
-        return ddim_sample(model_fn, x_init, schedule, taus,
-                           eta=cfg.sampler.ddim_eta, **common)
-    if kind != "ddpm":
-        raise ValueError(f"unknown sampler kind {kind!r}")
-    return ddpm_sample(model_fn, x_init, schedule, taus, **common)
+        common = dict(noise_seq=noise_seq, generator=generator,
+                      clip_denoised=cfg.sampler.clip_denoised if clip
+                      else None, prediction_type=cfg.dit.prediction_type)
+        if kind == "ddim":
+            return ddim_sample(model_fn, x_init, schedule, taus,
+                               eta=cfg.sampler.ddim_eta, **common)
+        if kind != "ddpm":
+            raise ValueError(f"unknown sampler kind {kind!r}")
+        return ddpm_sample(model_fn, x_init, schedule, taus, **common)
 
 
 def _text_emb(params, cfg: PipelineConfig, text_ids):
@@ -176,14 +206,13 @@ def build_stage_fns(cfg: PipelineConfig, *, num_steps: Optional[int] = None,
         return refined_to_indices(params, refined, ref_exact=ref_compat)
 
     def codec_decode(params, indices, output_length):
-        return codec_mod.codec_decode(params.codec, cfg.codec, indices,
-                                      output_length=output_length)
+        return _codec_decode(params, cfg, indices, output_length)
 
     def mel(params, wav):
         return _mel(cfg, wav[:, 0])
 
     def vocoder(params, m):
-        return voc_mod.bigvgan_forward(params.vocoder, cfg.vocoder, m)[:, 0]
+        return _vocode(params, cfg, m)
 
     def refine_indices(params, audio, padding_mask, text_ids, generator):
         latents = encode(params, audio, padding_mask)
@@ -234,10 +263,14 @@ def build_synthesize_pipelined(cfg: PipelineConfig, *,
     @torch.inference_mode()
     def synthesize(params: GeneratorParams, audio, padding_mask, text_ids,
                    generator: Optional[torch.Generator] = None):
-        audio, mask, text_ids = _inputs(dev, audio, padding_mask, text_ids)
-        idx = stages["refine_indices"](params, audio, mask, text_ids,
-                                       generator)
-        return stages["indices_to_waveform"](params, idx, audio.shape[-1])
+        with span("request", batch=audio.shape[0],
+                  frames=_frames(cfg, audio.shape[-1])):
+            audio, mask, text_ids = _inputs(dev, audio, padding_mask,
+                                            text_ids)
+            idx = stages["refine_indices"](params, audio, mask, text_ids,
+                                           generator)
+            return stages["indices_to_waveform"](params, idx,
+                                                 audio.shape[-1])
 
     return synthesize
 
@@ -277,20 +310,25 @@ def build_synthesize_recorded(cfg: PipelineConfig, *,
     @torch.inference_mode()
     def synthesize(params: GeneratorParams, audio, padding_mask, text_ids,
                    prompt_noise, init_noise, step_noise):
-        audio, mask, text_ids = _inputs(dev, audio, padding_mask, text_ids)
-        latents = encode_prompt_latents(params, cfg, audio, mask)
-        text_emb = _text_emb(params, cfg, text_ids)
-        t_full = torch.full((latents.shape[0],), cfg.dit.diffusion_steps - 1,
-                            dtype=torch.int64)
-        noised = q_sample(schedule, latents, t_full,
-                          _on_dev(dev, prompt_noise), ref_compat=compat)
-        x_init = noised if cond_by_audio else _on_dev(dev, init_noise)
-        refined = _sample(params, cfg, schedule, taus, x_init, text_emb,
-                          kind=kind, noise_seq=_on_dev(dev, step_noise),
-                          clip=False)
-        indices = refined_to_indices(params, refined, ref_exact=compat)
-        out, inter = indices_to_waveform(params, cfg, indices, audio.shape[-1],
-                                         return_intermediates=True)
+        with span("request", batch=audio.shape[0],
+                  frames=_frames(cfg, audio.shape[-1])):
+            audio, mask, text_ids = _inputs(dev, audio, padding_mask,
+                                            text_ids)
+            latents = encode_prompt_latents(params, cfg, audio, mask)
+            text_emb = _text_emb(params, cfg, text_ids)
+            t_full = torch.full((latents.shape[0],),
+                                cfg.dit.diffusion_steps - 1,
+                                dtype=torch.int64)
+            noised = q_sample(schedule, latents, t_full,
+                              _on_dev(dev, prompt_noise), ref_compat=compat)
+            x_init = noised if cond_by_audio else _on_dev(dev, init_noise)
+            refined = _sample(params, cfg, schedule, taus, x_init, text_emb,
+                              kind=kind, noise_seq=_on_dev(dev, step_noise),
+                              clip=False)
+            indices = refined_to_indices(params, refined, ref_exact=compat)
+            out, inter = indices_to_waveform(
+                params, cfg, indices, audio.shape[-1],
+                return_intermediates=True)
         if not return_intermediates:
             return out
         return out, {"latents": latents, "noised": noised, "refined": refined,
@@ -322,12 +360,13 @@ def build_slp_stage_fns(cfg: PipelineConfig, *,
     bcfg = byt5_small_config() if byt5_cfg is None else byt5_cfg
 
     def slp(params, audio, padding_mask, byt5_ids, byt5_mask):
-        logits = slp_mod.slp_forward(
-            params.slp, params.byt5, params.codec, cfg.slp, bcfg, cfg.codec,
-            byt5_ids, byt5_mask, audio, padding_mask)
-        return logits, slp_mod.slp_predict_frames(
-            logits, frame_rate=cfg.audio.frame_rate,
-            min_seconds=int(cfg.audio.min_audio_seconds))
+        with span("slp"):
+            logits = slp_mod.slp_forward(
+                params.slp, params.byt5, params.codec, cfg.slp, bcfg,
+                cfg.codec, byt5_ids, byt5_mask, audio, padding_mask)
+            return logits, slp_mod.slp_predict_frames(
+                logits, frame_rate=cfg.audio.frame_rate,
+                min_seconds=int(cfg.audio.min_audio_seconds))
 
     def sampler(params, text_ids, frames, generator=None, init_noise=None,
                 step_noise=None):
@@ -365,20 +404,23 @@ def build_synthesize_with_slp(cfg: PipelineConfig, *,
     runs)."""
     dev = resolve_device(device)
     st = build_slp_stage_fns(cfg, num_steps=num_steps, byt5_cfg=byt5_cfg)
+    max_frames = min(cfg.audio.max_latent_frames, cfg.dit.max_token_length)
 
     @torch.inference_mode()
     def synthesize(params: GeneratorParams, audio, padding_mask, text_ids,
                    byt5_ids, byt5_mask,
                    generator: Optional[torch.Generator] = None, *,
                    init_noise=None, step_noise=None):
-        audio, mask, text_ids = _inputs(dev, audio, padding_mask, text_ids)
-        byt5_ids = _on_dev(dev, byt5_ids, dtype=torch.int64)
-        byt5_mask = None if byt5_mask is None else torch.as_tensor(
-            byt5_mask).to(dev)
-        _, frames = st["slp"](params, audio, mask, byt5_ids, byt5_mask)
-        refined = st["sampler"](params, text_ids, frames, generator,
-                                _on_dev(dev, init_noise),
-                                _on_dev(dev, step_noise))
-        return st["tail"](params, refined), frames
+        with span("request", batch=audio.shape[0], frames=max_frames):
+            audio, mask, text_ids = _inputs(dev, audio, padding_mask,
+                                            text_ids)
+            byt5_ids = _on_dev(dev, byt5_ids, dtype=torch.int64)
+            byt5_mask = None if byt5_mask is None else torch.as_tensor(
+                byt5_mask).to(dev)
+            _, frames = st["slp"](params, audio, mask, byt5_ids, byt5_mask)
+            refined = st["sampler"](params, text_ids, frames, generator,
+                                    _on_dev(dev, init_noise),
+                                    _on_dev(dev, step_noise))
+            return st["tail"](params, refined), frames
 
     return synthesize

@@ -35,6 +35,12 @@ as ``jax.grad`` gives), applies AdamW and adds one to ``step``;
     classes; metrics ``loss`` and ``accuracy`` (the first index wins an
     argmax tie, as ``jnp.argmax``). The generator is not read.
 
+Each step records the spans (``utils/profiling.py``) ``train.step`` over
+``train.place`` (``_placed``), ``train.encode`` (the DiTTo frozen encode),
+``train.forward`` (the loss), ``train.backward`` (``torch.autograd.grad``)
+and ``train.optimizer`` (the gradient's mean over the data group and
+AdamW).
+
 AdamW is optax's ``adamw`` (the reference's torch.optim.AdamW defaults:
 betas (0.9, 0.999), eps 1e-8, weight decay 1e-6, decay decoupled and
 applied after the moment update, bias correction from an int32 count),
@@ -71,6 +77,7 @@ from ..models import slp as slp_mod
 from ..params import (new_train_state, ravel_tree, tree_leaves, tree_map,
                       tree_unflatten, zero_adamw_state)
 from ..text import gpt2 as gpt2_mod
+from ..utils.profiling import span
 
 
 class AdamW:
@@ -129,13 +136,14 @@ def make_adamw(learning_rate: float, weight_decay: float = 1e-6,
 def _placed(dev: torch.device, state, frozen, batch) -> Dict:
     """The batch's tensors or numpy arrays as tensors on ``dev``; raises if
     the state or the frozen tree lies elsewhere."""
-    for what, tree in (("state", state), ("frozen", frozen)):
-        for path, leaf in tree_leaves(tree):
-            if leaf.device.type != dev.type:
-                raise ValueError(
-                    f"the train step runs on {dev.type}, but {what}"
-                    f"{path} lies on {leaf.device}")
-    return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    with span("train.place"):
+        for what, tree in (("state", state), ("frozen", frozen)):
+            for path, leaf in tree_leaves(tree):
+                if leaf.device.type != dev.type:
+                    raise ValueError(
+                        f"the train step runs on {dev.type}, but {what}"
+                        f"{path} lies on {leaf.device}")
+        return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
 
 
 def _data_mean(tensors, mesh) -> list:
@@ -165,12 +173,16 @@ def _apply_gradient(opt: AdamW, state, loss_fn, mesh=None
     params = tree_map(lambda p: p.detach().requires_grad_(), state["params"])
     leaves = [leaf for _, leaf in tree_leaves(params)]
     with torch.enable_grad():
-        loss, metrics = loss_fn(params)
-        grad_leaves = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                          materialize_grads=True)
-    new_params, opt_state = opt.update(
-        tree_unflatten(params, _data_mean(grad_leaves, mesh)),
-        state["opt_state"], tree_map(torch.detach, params))
+        with span("train.forward"):
+            loss, metrics = loss_fn(params)
+        with span("train.backward"):
+            grad_leaves = torch.autograd.grad(loss, leaves,
+                                              allow_unused=True,
+                                              materialize_grads=True)
+    with span("train.optimizer"):
+        new_params, opt_state = opt.update(
+            tree_unflatten(params, _data_mean(grad_leaves, mesh)),
+            state["opt_state"], tree_map(torch.detach, params))
     return ({"params": new_params, "opt_state": opt_state,
              "step": state["step"] + 1}, _metrics_mean(metrics, mesh))
 
@@ -216,21 +228,23 @@ def build_ditto_train_step(dit_cfg: DiTConfig, codec_cfg: CodecConfig,
 
     @torch.no_grad()
     def encode_batch(frozen, batch):
-        if "latents" in batch:
-            latents = batch["latents"].float()[:, :gpt2_cfg.n_positions]
-        else:
-            codec, audio = frozen["codec"], batch["audio"]
-            if enc_dt != torch.float32:
-                codec = tree_map(lambda a: a.to(enc_dt)
-                                 if a.dtype == torch.float32 else a, codec)
-                audio = audio.to(enc_dt)
-            latents, _ = nac_mod.audio_encoder(
-                {"embedding_head": frozen["embedding_head"]}, codec,
-                codec_cfg, audio, batch.get("padding_mask"))
-            latents = latents.float()[:, :, :gpt2_cfg.n_positions]
-            latents = latents.mean(dim=1)                  # [B, T, H]
-        text_ids = batch["text_ids"][:, :latents.shape[1]]
-        return latents, gpt2_mod.embed_tokens(frozen["gpt2"], text_ids)
+        with span("train.encode"):
+            if "latents" in batch:
+                latents = batch["latents"].float()[:, :gpt2_cfg.n_positions]
+            else:
+                codec, audio = frozen["codec"], batch["audio"]
+                if enc_dt != torch.float32:
+                    codec = tree_map(lambda a: a.to(enc_dt)
+                                     if a.dtype == torch.float32 else a,
+                                     codec)
+                    audio = audio.to(enc_dt)
+                latents, _ = nac_mod.audio_encoder(
+                    {"embedding_head": frozen["embedding_head"]}, codec,
+                    codec_cfg, audio, batch.get("padding_mask"))
+                latents = latents.float()[:, :, :gpt2_cfg.n_positions]
+                latents = latents.mean(dim=1)              # [B, T, H]
+            text_ids = batch["text_ids"][:, :latents.shape[1]]
+            return latents, gpt2_mod.embed_tokens(frozen["gpt2"], text_ids)
 
     def loss_fn(dit_params, latents, text_emb, generator, t, noise):
         # draws for the global batch; this rank keeps its rows
@@ -261,15 +275,17 @@ def build_ditto_train_step(dit_cfg: DiTConfig, codec_cfg: CodecConfig,
 
     def step_fn(state, frozen, batch, generator=None, *, t=None,
                 noise=None) -> Tuple[Dict, Dict]:
-        batch = _placed(dev, state, frozen, batch)
-        latents, text_emb = encode_batch(frozen, batch)
+        with span("train.step"):
+            batch = _placed(dev, state, frozen, batch)
+            latents, text_emb = encode_batch(frozen, batch)
 
-        def loss_of(params):
-            # ref_compat's self-attention out_proj is not read: zeros
-            loss = loss_fn(params, latents, text_emb, generator, t, noise)
-            return loss, {"loss": loss}
+            def loss_of(params):
+                # ref_compat's self-attention out_proj is not read: zeros
+                loss = loss_fn(params, latents, text_emb, generator, t,
+                               noise)
+                return loss, {"loss": loss}
 
-        return _apply_gradient(opt, state, loss_of, mesh)
+            return _apply_gradient(opt, state, loss_of, mesh)
 
     @torch.no_grad()
     def eval_fn(state, frozen, batch, generator=None, *, t=None,
@@ -291,9 +307,10 @@ def _step_fns(dev: torch.device, opt: AdamW, loss_fn, mesh):
                                opt.flat)
 
     def step_fn(state, frozen, batch, generator=None) -> Tuple[Dict, Dict]:
-        batch = _placed(dev, state, frozen, batch)
-        return _apply_gradient(opt, state,
-                               lambda p: loss_fn(p, frozen, batch), mesh)
+        with span("train.step"):
+            batch = _placed(dev, state, frozen, batch)
+            return _apply_gradient(opt, state,
+                                   lambda p: loss_fn(p, frozen, batch), mesh)
 
     @torch.no_grad()
     def eval_fn(state, frozen, batch, generator=None) -> Dict:

@@ -33,7 +33,7 @@ from ditto_tts_tpu_torch.models import s2t as ts2t
 from ditto_tts_tpu_torch.params import (ecapa_spec, fill_spec, s2t_spec,
                                         tree_leaves, tree_map)
 from ditto_tts_tpu_torch.text.s2t_tokenizer import S2TTokenizer as TTok
-from ditto_tts_tpu_torch.utils.profiling import (annotate, check_determinism,
+from ditto_tts_tpu_torch.utils.profiling import (check_determinism, span,
                                                  trace)
 from ditto_tts_tpu_torch.utils.smoke import orthogonal_reinit as t_ortho
 
@@ -297,11 +297,13 @@ def test_time_fn_throughput_and_determinism():
 
 def test_trace_and_annotate(tmp_path):
     with trace(str(tmp_path / "tr")):
-        with annotate("eval_leg"):
+        with span("eval_leg"):
             torch.ones(4).sum()
     path = tmp_path / "tr" / "trace.json"
     assert path.exists()
     assert "eval_leg" in path.read_text()
+    spans = json.loads((tmp_path / "tr" / "spans.json").read_text())
+    assert [s["name"] for s in spans] == ["eval_leg"]
 
 
 def test_plots(tmp_path):
