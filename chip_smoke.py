@@ -306,15 +306,21 @@ def held_to_plain(checks, label: str):
     through ``checks.compare``; yields {kernel and shape: max_abs_err}.
     The kernel's result goes on unchanged (the wrappers are looked up at
     call time, as in ``ShapeLog``), and the plain versions count no
-    launch."""
+    launch. A call inside a CUDA graph capture (the sampler's step,
+    ``infer/step_graph.py``) computes nothing and is not held: the
+    eager warm-up of a new shape, before its capture, holds it."""
+    import torch
     from ditto_tts_tpu_torch.ops import act_conv as C, attention as A, \
         conv as B
     saved = (A.attention_cuda, B.conv1d_cuda, C.aa_snake_conv1d_cuda)
     attn, conv, act = saved
     seen = {}
 
+    def held(key):
+        return key in seen or torch.cuda.is_current_stream_capturing()
+
     def hold(kernel, key, dn, y, plain):
-        if f"{kernel} {key}" not in seen:
+        if not held(f"{kernel} {key}"):
             seen[f"{kernel} {key}"] = checks.compare(
                 kernel, f"{label} {key}", y, plain(), dn)
         return y
@@ -326,7 +332,7 @@ def held_to_plain(checks, label: str):
                f"Sk{k.shape[2]} D{q.shape[3]} causal={causal} "
                f"kv_len={kv_len}")
         y = attn(q, k, v, **kw)
-        if dn == "float32" and f"attention {key}" not in seen:
+        if dn == "float32" and not held(f"attention {key}"):
             # how far each side lies from the fp64 math: which of the two
             # fp32 sums the kernel-vs-plain difference comes from
             exact = A.attention_plain(q.double(), k.double(), v.double(),

@@ -24,9 +24,11 @@ moved to that device, and the parameters must already be there.
 
 Spans (``utils/profiling.py``, recorded inside a ``recording()`` block): a
 request is ``request`` (attrs batch, frames) over ``encode`` or ``slp``,
-``sampler`` (batch, frames, steps) over one ``sampler.step`` a step, ``vq``,
-``codec_decode``, ``mel`` and ``vocoder``; each sits in the function the
-entry points and the stage functions share.
+``sampler`` (batch, frames, steps, graph: "captured" or "eager") over
+``sampler.capture`` (where the step is graphed, ``step_graph.py``) and one
+``sampler.step`` a step, ``vq``, ``codec_decode``, ``mel`` and
+``vocoder``; each sits in the function the entry points and the stage
+functions share.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from ..ops.mel import get_mel_spectrogram
 from ..params import GeneratorParams
 from ..text import gpt2 as gpt2_mod
 from ..utils.profiling import span
+from . import step_graph
 
 
 def encode_prompt_latents(params: GeneratorParams, cfg: PipelineConfig,
@@ -129,15 +132,26 @@ def _sample(params, cfg: PipelineConfig, schedule, taus, x_init, text_emb,
             clip: bool = True):
     """The sampler over the DiT; ``clip`` applies ``cfg.sampler.clip_denoised``
     (the recorded form passes False: JAX's reference-parity path has no
-    clip)."""
+    clip). Where ``step_graph.engages`` (a CUDA x, grad mode off), the DiT
+    forward of a step is captured once, after ``prepare``, and replayed
+    for every step; the updates and the draws stay eager, in their order."""
+    graphed = step_graph.engages(x_init)
     with span("sampler", batch=x_init.shape[0], frames=x_init.shape[1],
-              steps=len(taus)):
+              steps=len(taus), graph="captured" if graphed else "eager"):
         prep = dit_mod.prepare(params.dit, cfg.dit, text_emb,
                                x_init.shape[1])
 
         def model_fn(x, t):
             return dit_mod.ditto_forward(params.dit, cfg.dit, x, text_emb, t,
                                          prepared=prep)
+
+        if graphed:
+            with span("sampler.capture"):
+                t0 = torch.full((x_init.shape[0],), int(taus[0]),
+                                dtype=torch.int64, device=x_init.device)
+                model_fn = step_graph.capture(
+                    model_fn, x_init, t0,
+                    (cfg.dit, tuple(text_emb.shape), text_emb.dtype))
 
         common = dict(noise_seq=noise_seq, generator=generator,
                       clip_denoised=cfg.sampler.clip_denoised if clip

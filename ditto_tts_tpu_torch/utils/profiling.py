@@ -6,9 +6,10 @@ SURVEY 5.2's stand-in for race detection).
 
 Spans. ``with span(name, **attrs):`` marks a stretch of the program. The
 serving chains record ``request`` (the root: batch, frames), ``encode``,
-``slp``, ``sampler`` (the whole DDPM or DDIM loop) over one
-``sampler.step`` a step (step), ``vq``, ``codec_decode``, ``mel`` and
-``vocoder``; the train steps ``train.step`` over ``train.place``,
+``slp``, ``sampler`` (the whole DDPM or DDIM loop; graph, "captured" or
+"eager") over ``sampler.capture`` (the capture of the step's CUDA graph,
+where there is one) and one ``sampler.step`` a step (step), ``vq``,
+``codec_decode``, ``mel`` and ``vocoder``; the train steps ``train.step`` over ``train.place``,
 ``train.encode`` (DiTTo), ``train.forward``, ``train.backward`` and
 ``train.optimizer``.
 

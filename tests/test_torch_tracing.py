@@ -10,6 +10,7 @@ Chrome trace and the spans.
 import dataclasses
 import json
 import threading
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -20,9 +21,13 @@ from ditto_tts_tpu_torch.config import (AudioConfig, ByT5Config, CodecConfig,
                                         DiTConfig, GPT2Config, NACConfig,
                                         PipelineConfig, SamplerConfig,
                                         SLPConfig, VocoderConfig)
+from ditto_tts_tpu_torch.diffusion.sampler import ddim_sample, ddpm_sample
+from ditto_tts_tpu_torch.infer import generator as gen_mod
+from ditto_tts_tpu_torch.infer import step_graph
 from ditto_tts_tpu_torch.infer.generator import (build_synthesize_pipelined,
                                                  build_synthesize_recorded,
                                                  build_synthesize_with_slp)
+from ditto_tts_tpu_torch.models import dit as dit_mod
 from ditto_tts_tpu_torch.train import steps as tsteps
 from ditto_tts_tpu_torch.utils import profiling
 from ditto_tts_tpu_torch.utils.profiling import recording, span, trace
@@ -181,7 +186,7 @@ def test_served_request_records_its_stages(params, entry):
     assert [s["attrs"]["step"] for s in steps] == list(range(K))
     assert all(s["parent"] == sampler for s in steps)
     assert spans[sampler]["attrs"] == {"batch": B, "frames": frames,
-                                       "steps": K}
+                                       "steps": K, "graph": "eager"}
     for i, s in enumerate(spans):
         assert s["start_ns"] <= s["end_ns"]
         if s["parent"] is not None:
@@ -303,3 +308,76 @@ def test_threads_keep_their_own_stacks_and_recordings_restore():
     assert got["worker"]["parent"] is None and got["worker"]["request"] == 1
     assert got["child"]["parent"] == 0 and got["child"]["request"] == 0
     assert profiling._recorder is None
+
+
+def _no_capture(*a, **k):
+    raise AssertionError("the step was captured")
+
+
+@pytest.mark.parametrize("entry", ["ddpm", "ddim", "recorded", "slp"])
+def test_cpu_sampler_records_eager_and_no_capture(params, entry,
+                                                  monkeypatch):
+    """On the CPU the step is never graphed: the ``sampler`` span says
+    ``graph="eager"`` and no ``sampler.capture`` span opens."""
+    monkeypatch.setattr(step_graph, "capture", _no_capture)
+    with recording() as rec:
+        _serve(entry, params)
+    spans = rec.spans()
+    assert [s["attrs"]["graph"] for s in spans
+            if s["name"] == "sampler"] == ["eager"]
+    assert "sampler.capture" not in {s["name"] for s in spans}
+
+
+@pytest.mark.parametrize("on_cuda", [False, True], ids=["cpu", "cuda"])
+@pytest.mark.parametrize("mode", ["grad", "no_grad", "inference"])
+def test_step_graph_engages_on_a_cuda_tensor_with_grad_off(monkeypatch,
+                                                          mode, on_cuda):
+    """The graph engages for a CUDA x with grad mode off, and never under
+    grad (a stand-in reports ``is_cuda`` here, where there is no card)."""
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    x = SimpleNamespace(is_cuda=True) if on_cuda else torch.zeros(2)
+    ctx = {"grad": torch.enable_grad, "no_grad": torch.no_grad,
+           "inference": torch.inference_mode}[mode]
+    with ctx():
+        assert step_graph.engages(x) == (on_cuda and mode != "grad")
+
+
+def test_step_graph_stays_out_of_a_capture_under_way(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    with torch.inference_mode():
+        assert not step_graph.engages(SimpleNamespace(is_cuda=True))
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["no_grad", "grad"])
+@pytest.mark.parametrize("kind", ["ddpm", "ddim"])
+def test_cpu_sample_is_the_plain_sampler_loop(params, monkeypatch, kind,
+                                              grad):
+    """``_sample`` on the CPU, with grad mode off or on, is the sampler over
+    a plain ``model_fn`` around ``ditto_forward``, bit for bit."""
+    monkeypatch.setattr(step_graph, "capture", _no_capture)
+    cfg = CFG
+    schedule, taus = gen_mod._schedule(cfg, None)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((B, 16, HID), generator=g)
+    emb = torch.randn((B, 9, HID), generator=g)
+    with torch.set_grad_enabled(grad):
+        got = gen_mod._sample(params, cfg, schedule, taus, x, emb,
+                              kind=kind,
+                              generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        prep = dit_mod.prepare(params.dit, cfg.dit, emb, x.shape[1])
+
+        def model_fn(xx, t):
+            return dit_mod.ditto_forward(params.dit, cfg.dit, xx, emb, t,
+                                         prepared=prep)
+
+        kw = dict(generator=torch.Generator().manual_seed(4),
+                  clip_denoised=cfg.sampler.clip_denoised,
+                  prediction_type=cfg.dit.prediction_type)
+        want = (ddim_sample(model_fn, x, schedule, taus,
+                            eta=cfg.sampler.ddim_eta, **kw)
+                if kind == "ddim" else
+                ddpm_sample(model_fn, x, schedule, taus, **kw))
+    assert got.dtype == want.dtype and torch.equal(got.detach(), want)
