@@ -152,7 +152,18 @@ Phases (any failure exits non-zero and prints no result line):
      process; NCCL at world size 1 (init, an all-reduce on the card,
      teardown); the eval_discrimination twin at EVAL_DISC_ARGS, which
      writes its report
- 14. a {"kernels": [...]} line, then the card line, then the last line
+ 14. F5-TTS v1 Base at its published widths (22 x 1024, 16 heads of 64,
+     32 guided Euler steps over 2B rows, BigVGAN v2 on the generated
+     frames; random weights from numpy seed 0): one request of B=4 10 s
+     prompts, 384 ids, 2,343 frames through build_synthesize_pipelined
+     with the first call of kernels A, B and C at each shape held to its
+     plain version (A at bf16 B8 H16 S2343 D64 in the step the capture
+     runs eagerly; B and C at the vocoder's 1,406 generated frames), then
+     the same seed timed (bitwise equal) and another seed; launches of
+     each request exactly F5's (A 704: one a block a step; C 54; D 0;
+     B as the held request counted it), and the shapes of A's and B's
+     calls in the held request
+ 15. a {"kernels": [...]} line, then the card line, then the last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
 Weights are random (numpy seed 0, init_generator_params and
@@ -211,6 +222,10 @@ FUSED_PALLAS_PATH = {"attention": 1200, "conv1d": 90 + 54, "act_conv": 0,
                      "snake": 108}
 # BigVGAN's last two stages under aa_impl="fused_ncl", one forward
 FUSED_NCL_PATH = {"attention": 0, "conv1d": 4, "act_conv": 36, "snake": 0}
+# launches of kernels A, C and D per F5 request at the published widths
+# (22 blocks x 32 guided steps; BigVGAN's act->conv pairs); B's count is
+# read from the phase's held request
+F5_PATH = {"attention": 22 * 32, "act_conv": 54, "snake": 0}
 # matmul-softmax attention per SLP-chain request (no kernel: JAX computes
 # it outside Pallas): the decoder's self and cross attention over one
 # 1472-wide head, ByT5's biased attention in each of its 12 layers, and
@@ -3008,6 +3023,88 @@ def parallel_phase(torch, np, card, rec):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 14: F5-TTS v1 Base
+# --------------------------------------------------------------------------
+
+def f5_phase(torch, np, card, rec) -> dict:
+    """One F5 request at the published widths held to the plain versions
+    of A, B and C, then timed requests; returns the launches of one
+    request."""
+    from ditto_tts_tpu_torch import kernels
+    from ditto_tts_tpu_torch.config import F5PipelineConfig
+    from ditto_tts_tpu_torch.infer.generator import build_synthesize_pipelined
+    from ditto_tts_tpu_torch.params import F5Params, init_f5_params, \
+        tree_map
+
+    cfg = F5PipelineConfig()
+    dev = torch.device("cuda")
+    batch, ids, steps = 4, 384, cfg.sampler.steps
+    n = cfg.total_frames
+    p = 10 * cfg.vocoder.sampling_rate // cfg.vocoder.hop_size  # 937
+    t0 = time.perf_counter()
+    cpu = init_f5_params(cfg, seed=0)
+    params = F5Params(**{k: tree_map(lambda a: a.to(dev), getattr(cpu, k))
+                         for k in ("dit", "vocoder")})
+    del cpu
+    log(f"  parameters: {time.perf_counter() - t0:.1f} s; {n} frames, "
+        f"{p} of them the prompt's, {steps} steps")
+    rng = np.random.default_rng(4)
+    audio = torch.from_numpy((0.05 * rng.standard_normal(
+        (batch, 1, 10 * cfg.vocoder.sampling_rate))).astype(np.float32))
+    text = torch.from_numpy(rng.integers(0, cfg.dit.text_num_embeds,
+                                         (batch, ids)))
+    serve = build_synthesize_pipelined(cfg)
+
+    def run(seed):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        wav = serve(params, audio, None, text,
+                    torch.Generator(device=dev).manual_seed(seed))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        if wav.shape != (batch, (n - p) * cfg.vocoder.hop_size):
+            fail(f"F5: waveform {tuple(wav.shape)}, expected "
+                 f"{(batch, (n - p) * cfg.vocoder.hop_size)}")
+        if not bool(torch.isfinite(wav).all()):
+            fail(f"F5 seed {seed}: non-finite waveform")
+        return wav, dt, dict(kernels.launches)
+
+    checks = Checks()
+    with held_to_plain(checks, "F5") as held, ShapeLog() as shapes:
+        wav0, warm, launches = run(5)
+    shape_log = shapes.report("F5 25 s")
+    if checks.bad:
+        fail(f"F5: kernels outside tolerance: {checks.bad}")
+    a_key = f"attention bfloat16 B{2 * batch} H16 Sq{n} Sk{n} D64"
+    if not any(k.startswith(a_key) for k in held):
+        fail(f"F5: kernel A at {a_key} was not held to its plain version: "
+             f"{sorted(held)}")
+    want = dict(F5_PATH, conv1d=launches.get("conv1d", 0))
+    log(f"  launches of the held request: {launches}")
+    check_launches("F5 serving path", launches, want, 1)
+    if not want["conv1d"]:
+        fail("F5: the vocoder launched no kernel B")
+    times = []
+    for seed in (5, 6):
+        wav, dt, got = run(seed)
+        check_launches(f"F5 request, seed {seed}", got, want, 1)
+        if (seed == 5) != torch.equal(wav, wav0):
+            fail(f"F5 seed {seed}: bitwise {'un' if seed == 5 else ''}equal "
+                 "to the held request")
+        times.append(dt)
+    gen_s = batch * (n - p) * cfg.vocoder.hop_size / cfg.vocoder.sampling_rate
+    log(f"  B={batch}: waveform {tuple(wav0.shape)}, held request "
+        f"{warm:.3f} s, requests {[round(t, 4) for t in times]} s, "
+        f"{gen_s / min(times):.2f} generated audio-s/s ({card})")
+    rec["f5"] = {"batch": batch, "frames": n, "prompt_frames": p,
+                 "held_s": warm, "request_s": times, "held": held,
+                 "shapes": shape_log, "launches": launches,
+                 "audio_s_per_s": gen_s / min(times)}
+    return want
+
+
 def main() -> None:
     if not (ROOT / "ditto_tts_tpu_torch" / "__init__.py").exists():
         fail("run from the root of a checkout: ditto_tts_tpu_torch/ is "
@@ -3117,12 +3214,18 @@ def main() -> None:
         "world size 1, eval_discrimination")
     mesh_launches = parallel_phase(torch, np, card, rec)
 
-    # launches per 10 s request (fused_ncl: per forward of its two stages;
+    log("== 14. F5-TTS v1 Base (22 x 1024, 2,343 frames, 32 guided steps, "
+        "BigVGAN)")
+    f5_launches = f5_phase(torch, np, card, rec)
+
+    # launches per 10 s request (f5: per 25 s F5 request of phase 14;
+    # fused_ncl: per forward of its two stages;
     # train_step: per step of phase 10's audio leg; nac_step, slp_step: per
     # step of phase 11; eval_batch: per evaluated batch of phase 12)
     paths = {"default": DEFAULT_PATH, "fused_pallas": FUSED_PALLAS_PATH,
              "fused_ncl": FUSED_NCL_PATH, "slp": DEFAULT_PATH,
-             "ddim": DEFAULT_PATH, "train_step": train_launches,
+             "ddim": DEFAULT_PATH, "f5": f5_launches,
+             "train_step": train_launches,
              **corpus_launches, "eval_batch": eval_launches,
              **{f"mesh_{m}_rank{r}_step": c
                 for m, cs in mesh_launches.items()

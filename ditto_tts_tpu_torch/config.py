@@ -364,3 +364,90 @@ def serving_config() -> PipelineConfig:
                           dit=DiTConfig(num_layers=12, num_heads=12,
                                         scan_blocks=True,
                                         compute_dtype="bfloat16"))
+
+
+# ---------------------------------------------------------------------------
+# F5-TTS v1 Base (SWivid/F5-TTS, src/f5_tts/configs/F5TTS_v1_Base.yaml;
+# arXiv:2410.06885): a flow-matching DiT over joint mel-and-text frames.
+# The JAX package has no such model; these configurations are the port's.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class F5DiTConfig(_JsonMixin):
+    """F5's DiT backbone (``backbones/dit.py``): ``depth`` AdaLN-Zero blocks
+    of width ``dim`` (``heads`` heads of ``dim_head``, interleaved RoPE,
+    tanh-GELU feed-forward of ``ff_mult * dim``), a character-level text
+    embedding of ``text_num_embeds`` ids plus the filler (sinusoidal
+    positions and ``conv_layers`` ConvNeXt-V2 blocks of ``text_dim``), an
+    input projection of ``cat(x, cond, text)`` with a grouped conv
+    position embedding, and a ``mel_dim`` output. ``compute_dtype`` is the
+    block stack's operand type (LayerNorm statistics, softmax and the
+    modulations stay fp32)."""
+
+    dim: int = 1024
+    depth: int = 22
+    heads: int = 16
+    dim_head: int = 64
+    ff_mult: int = 2
+    text_dim: int = 512
+    text_num_embeds: int = 2545
+    conv_layers: int = 4
+    conv_mult: int = 2
+    mel_dim: int = 100
+    conv_pos_kernel: int = 31
+    conv_pos_groups: int = 16
+    time_freq_dim: int = 256
+    text_max_pos: int = 4096
+    compute_dtype: str = "bfloat16"
+
+
+@dataclasses.dataclass(frozen=True)
+class FlowSamplerConfig(_JsonMixin):
+    """F5's inference (``model/cfm.py:sample``, ``infer/utils_infer.py``):
+    ``steps`` Euler steps of the flow ODE over sway-sampled times
+    (``t + sway_coef (cos(pi t / 2) - 1 + t)``), classifier-free guidance
+    of strength ``cfg_strength`` with the conditional and unconditional rows
+    in one batch, prompts RMS-normalised up to ``target_rms``, and a fixed
+    total length of ``fix_duration`` seconds (prompt and generated speech;
+    the port does not estimate a duration from the text)."""
+
+    steps: int = 32
+    cfg_strength: float = 2.0
+    sway_coef: float = -1.0
+    target_rms: float = 0.1
+    fix_duration: float = 25.0
+
+
+@dataclasses.dataclass(frozen=True)
+class F5PipelineConfig:
+    """The F5-TTS serving chain: the prompt's log-mel (``vocoder``'s
+    analysis, F5's ``mel_spec_type: bigvgan``), the flow sampler over the
+    DiT, and BigVGAN on the generated frames."""
+
+    dit: F5DiTConfig = dataclasses.field(default_factory=F5DiTConfig)
+    sampler: FlowSamplerConfig = dataclasses.field(
+        default_factory=FlowSamplerConfig)
+    vocoder: VocoderConfig = dataclasses.field(default_factory=VocoderConfig)
+
+    def to_json(self) -> str:
+        return json.dumps(_asdict(self), indent=2, sort_keys=True)
+
+    @classmethod
+    def from_json(cls, s: str):
+        d = json.loads(s)
+        return cls(dit=F5DiTConfig(**d["dit"]),
+                   sampler=FlowSamplerConfig(**d["sampler"]),
+                   vocoder=VocoderConfig(**_tuplify(
+                       d["vocoder"],
+                       ("upsample_rates", "upsample_kernel_sizes",
+                        "resblock_kernel_sizes",
+                        "resblock_dilation_sizes"))))
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def total_frames(self) -> int:
+        """F5's ``fix_duration`` in mel frames: int(seconds * sr / hop)."""
+        v = self.vocoder
+        return int(self.sampler.fix_duration * v.sampling_rate / v.hop_size)

@@ -19,6 +19,17 @@ predicts each utterance's frames, the DiT denoises a max-length buffer and
 the frames past the prediction are zeroed (quirk #5 corrected);
 ``build_slp_stage_fns`` exposes its stages.
 
+Given an ``F5PipelineConfig``, ``build_synthesize_pipelined`` and
+``build_stage_fns`` serve F5-TTS (``models/f5.py``) with the same call:
+the prompt RMS-normalised up to the target (F5's inference), its log-mel,
+the text embedding, the flow sampler (``diffusion/flow.py``) from y0 ~
+N(0, I) over ``total_frames`` with the prompt's mel as the condition and
+classifier-free guidance in one batch of 2B rows, the prompt's frames
+put back, BigVGAN over the frames after the prompt, and the waveform
+scaled back by the prompt's gain. ``params`` is a ``params.F5Params``;
+``text_ids`` are F5's character ids (-1 pads); prompts share one length
+(a padding mask, where given, marks every sample valid).
+
 Entry points run on ``cuda`` unless built with ``device="cpu"``; inputs are
 moved to that device, and the parameters must already be there.
 
@@ -28,7 +39,9 @@ request is ``request`` (attrs batch, frames) over ``encode`` or ``slp``,
 ``sampler.capture`` (where the step is graphed, ``step_graph.py``) and one
 ``sampler.step`` a step, ``vq``, ``codec_decode``, ``mel`` and
 ``vocoder``; each sits in the function the entry points and the stage
-functions share.
+functions share. The F5 request is ``request`` over ``mel``,
+``text_encode``, ``sampler`` (``sampler.capture``, ``sampler.step``) and
+``vocoder``.
 """
 
 from __future__ import annotations
@@ -36,14 +49,18 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from .. import resolve_device
 from ..codec import encodec as codec_mod
 from ..codec import rvq as rvq_mod
-from ..config import ByT5Config, PipelineConfig, byt5_small_config
+from ..config import (ByT5Config, F5PipelineConfig, PipelineConfig,
+                      byt5_small_config)
+from ..diffusion.flow import euler_sample, sway_times
 from ..diffusion.sampler import ddim_sample, ddpm_sample, respaced_timesteps
 from ..diffusion.schedule import NoiseSchedule, q_sample
 from ..models import dit as dit_mod
+from ..models import f5 as f5_mod
 from ..models import nac as nac_mod
 from ..models import slp as slp_mod
 from ..models import vocoder as voc_mod
@@ -206,7 +223,12 @@ def build_stage_fns(cfg: PipelineConfig, *, num_steps: Optional[int] = None,
     The sampler stage is DDPM whatever ``sampler_kind`` says, as the JAX
     stage is; it draws as ``refine_indices`` does, so under DDPM the
     stages compose to the serving path bit for bit. ``ref_compat`` defaults
-    to False, as in JAX: ``cfg.dit.ref_compat`` is not read here."""
+    to False, as in JAX: ``cfg.dit.ref_compat`` is not read here. An
+    ``F5PipelineConfig`` gives F5's stages (``f5_stage_fns``), and takes
+    none of the DiTTo sampler's options."""
+    if isinstance(cfg, F5PipelineConfig):
+        _f5_takes_no_ditto_options(sampler_kind, cond_by_audio, ref_compat)
+        return f5_stage_fns(cfg, num_steps=num_steps)
     kind = cfg.sampler.kind if sampler_kind is None else sampler_kind
     opts = dict(num_steps=num_steps, cond_by_audio=cond_by_audio,
                 compat=ref_compat)
@@ -266,8 +288,13 @@ def build_synthesize_pipelined(cfg: PipelineConfig, *,
     text_ids [B, St] GPT2 ids, generator a ``torch.Generator`` on the
     device (None: the device's default generator). ``num_steps`` and
     ``sampler_kind`` ("ddpm" | "ddim") default to ``cfg.sampler``,
-    ``ref_compat`` to ``cfg.dit.ref_compat``."""
+    ``ref_compat`` to ``cfg.dit.ref_compat``. An ``F5PipelineConfig``
+    serves F5-TTS with the same call (see the module docstring), and takes
+    none of the DiTTo sampler's options."""
     dev = resolve_device(device)
+    if isinstance(cfg, F5PipelineConfig):
+        _f5_takes_no_ditto_options(sampler_kind, cond_by_audio, ref_compat)
+        return _f5_synthesize(cfg, dev, num_steps)
     stages = build_stage_fns(cfg, num_steps=num_steps,
                              sampler_kind=sampler_kind,
                              cond_by_audio=cond_by_audio,
@@ -436,5 +463,141 @@ def build_synthesize_with_slp(cfg: PipelineConfig, *,
                                     _on_dev(dev, init_noise),
                                     _on_dev(dev, step_noise))
             return st["tail"](params, refined), frames
+
+    return synthesize
+
+
+# ---------------------------------------------------------------------------
+# the F5-TTS chain (F5-TTS infer/utils_infer.py:infer_batch_process)
+# ---------------------------------------------------------------------------
+
+def _f5_takes_no_ditto_options(sampler_kind, cond_by_audio, ref_compat):
+    """Raise where a DiTTo-only option is given with an F5 configuration:
+    F5's sampler is its configuration's guided Euler flow, whatever they
+    would say."""
+    given = [name for name, v in (("sampler_kind", sampler_kind is not None),
+                                  ("cond_by_audio", cond_by_audio),
+                                  ("ref_compat", bool(ref_compat))) if v]
+    if given:
+        raise ValueError(f"{', '.join(given)}: DiTTo sampler options, which "
+                         "an F5PipelineConfig does not take")
+
+
+def _f5_gain(cfg: F5PipelineConfig, audio):
+    """Each prompt's RMS [B] and the gain that lifts a quieter one to
+    ``target_rms`` (1 for the others)."""
+    rms = torch.sqrt(torch.mean(torch.square(audio.float()), dim=(1, 2)))
+    target = cfg.sampler.target_rms
+    return rms, torch.where(rms < target, target / rms,
+                            torch.ones_like(rms))
+
+
+def _f5_prepare(params, cfg: F5PipelineConfig, cond, text2):
+    """(cond padded with zeros to the text's N frames, ``f5.prepare``)."""
+    step_cond = F.pad(cond.float(), (0, 0, 0, text2.shape[1] - cond.shape[1]))
+    return step_cond, f5_mod.prepare(params.dit, cfg.dit, step_cond, text2)
+
+
+def _f5_sample(params, cfg: F5PipelineConfig, times, cond, text2,
+               generator):
+    """The full mel [B, N, mel] from the prompt's mel cond [B, P, mel] and
+    the text embedding [2B, N, td]: y0 drawn from ``generator``, the
+    guided Euler steps (graphed where ``step_graph.engages``), then the
+    prompt's frames put back."""
+    b, p, m = cond.shape
+    n = text2.shape[1]
+    y0 = torch.randn((b, n, m), generator=generator, dtype=torch.float32,
+                     device=cond.device)
+    graphed = step_graph.engages(y0)
+    with span("sampler", batch=b, frames=n, steps=times.shape[0] - 1,
+              graph="captured" if graphed else "eager"):
+        step_cond, prep = _f5_prepare(params, cfg, cond, text2)
+
+        def model_fn(y, t):
+            return f5_mod.velocity(params.dit, cfg.dit, y, t, prep,
+                                   cfg.sampler.cfg_strength)
+
+        if graphed:
+            with span("sampler.capture"):
+                t0 = times[:1].to(y0.device).expand(b)
+                model_fn = step_graph.capture(
+                    model_fn, y0, t0, (cfg.dit, cfg.sampler.cfg_strength,
+                                       tuple(text2.shape)))
+        y = euler_sample(model_fn, y0, times)
+        return torch.cat([step_cond[:, :p], y[:, p:]], dim=1)
+
+
+def f5_stage_fns(cfg: F5PipelineConfig, *, num_steps: Optional[int] = None):
+    """F5's chain as stages, each a plain function; they compose to
+    ``build_synthesize_pipelined(cfg)`` bit for bit:
+
+      mel(params, audio [B, 1, L]) -> (cond [B, P, mel], rms [B])
+      text_encode(params, text_ids [B, Nt], frames) -> [2B, N, td]
+      sampler(params, cond, text2, generator) -> mel [B, N, mel]
+      vocoder(params, mel [B, mel, F]) -> waveform [B, F * hop]
+      loudness(wave, rms) -> the waveform scaled back by the gain
+      velocity(params, cond, text2, y, t) -> one guided velocity, eager
+    """
+    steps = cfg.sampler.steps if num_steps is None else num_steps
+    times = sway_times(steps, cfg.sampler.sway_coef)
+    v = cfg.vocoder
+
+    def mel(params, audio):
+        with span("mel"):
+            rms, gain = _f5_gain(cfg, audio)
+            m = get_mel_spectrogram(
+                audio[:, 0].float() * gain[:, None],
+                sample_rate=v.sampling_rate, n_fft=v.n_fft,
+                num_mels=v.num_mels, hop=v.hop_size, win_size=v.win_size,
+                fmin=v.fmin, fmax=v.fmax)
+        return m.transpose(1, 2), rms
+
+    def text_encode(params, text_ids, frames: int):
+        with span("text_encode"):
+            return f5_mod.text_embed(params.dit["text_embed"], cfg.dit,
+                                     text_ids, frames)
+
+    def sampler(params, cond, text2, generator):
+        return _f5_sample(params, cfg, times, cond, text2, generator)
+
+    def vocoder(params, m):
+        return _vocode(params, cfg, m)
+
+    def loudness(wave, rms):
+        target = cfg.sampler.target_rms
+        return torch.where((rms < target)[:, None], wave * (rms / target)[
+            :, None], wave)
+
+    def velocity(params, cond, text2, y, t):
+        _, prep = _f5_prepare(params, cfg, cond, text2)
+        return f5_mod.velocity(params.dit, cfg.dit, y, t, prep,
+                               cfg.sampler.cfg_strength)
+
+    return {"mel": mel, "text_encode": text_encode, "sampler": sampler,
+            "vocoder": vocoder, "loudness": loudness, "velocity": velocity}
+
+
+def _f5_synthesize(cfg: F5PipelineConfig, dev, num_steps: Optional[int]):
+    st = f5_stage_fns(cfg, num_steps=num_steps)
+    n = cfg.total_frames
+
+    @torch.inference_mode()
+    def synthesize(params, audio, padding_mask, text_ids,
+                   generator: Optional[torch.Generator] = None):
+        with span("request", batch=audio.shape[0], frames=n):
+            audio, mask, text_ids = _inputs(dev, audio, padding_mask,
+                                            text_ids)
+            if mask is not None and not bool(mask.all()):
+                raise ValueError("F5 serving takes prompts of one length: "
+                                 "every sample of the padding mask valid")
+            cond, rms = st["mel"](params, audio)
+            if cond.shape[1] >= n:
+                raise ValueError(f"a prompt of {cond.shape[1]} mel frames "
+                                 f"leaves nothing of {n} to generate")
+            text2 = st["text_encode"](params, text_ids, n)
+            full = st["sampler"](params, cond, text2, generator)
+            wave = st["vocoder"](params, full[:, cond.shape[1]:]
+                                 .transpose(1, 2))
+            return st["loudness"](wave, rms)
 
     return synthesize

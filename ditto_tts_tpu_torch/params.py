@@ -31,9 +31,9 @@ import numpy as np
 import torch
 
 from . import resolve_device
-from .config import (ByT5Config, CodecConfig, DiTConfig, GPT2Config,
-                     NACConfig, PipelineConfig, SLPConfig, VocoderConfig,
-                     byt5_small_config)
+from .config import (ByT5Config, CodecConfig, DiTConfig, F5DiTConfig,
+                     F5PipelineConfig, GPT2Config, NACConfig, PipelineConfig,
+                     SLPConfig, VocoderConfig, byt5_small_config)
 
 FIELDS = ("dit", "codec", "gpt2", "embedding_head", "vector_quantizer",
           "vocoder")
@@ -300,6 +300,127 @@ def generator_spec(cfg: PipelineConfig, *, gpt2_vocab: int = 50257,
         **nac_trainable_spec(cfg.nac),
         "vocoder": _vocoder_spec(cfg.vocoder),
     }
+
+
+@dataclasses.dataclass
+class F5Params:
+    """The F5-TTS chain's trees: the DiT with its text embedding
+    (``f5_dit_spec``) and BigVGAN."""
+
+    dit: Dict
+    vocoder: Dict
+
+
+def _conv_grouped(ch: int, k: int, groups: int):
+    b = 1.0 / math.sqrt(ch // groups * k)
+    return {"weight": _u((ch, ch // groups, k), b), "bias": _u((ch,), b)}
+
+
+def f5_dit_spec(cfg: F5DiTConfig):
+    """Leaf specs of F5's DiT in the port's tree (``models/f5.py``), at
+    PyTorch's default inits (``nn.Linear``, ``nn.Conv1d``: uniform over
+    the fan-in bound; ``nn.Embedding``: N(0, 1)). F5 zeroes the AdaLN
+    modulations and the output layers at init, and its GRN's gamma and
+    beta; drawn weights stand for trained ones here, so those take the
+    Linear default, and gamma and beta N(0, 0.1)."""
+    d, td = cfg.dim, cfg.text_dim
+    text_block = {"dwconv": _conv_grouped(td, 7, td),
+                  "norm": _layer_norm(td),
+                  "pwconv1": _linear(td, td * cfg.conv_mult),
+                  "grn": {"gamma": _n((td * cfg.conv_mult,), 0.1),
+                          "beta": _n((td * cfg.conv_mult,), 0.1)},
+                  "pwconv2": _linear(td * cfg.conv_mult, td)}
+    inner = cfg.heads * cfg.dim_head
+    block = {"attn_norm": _linear(d, 6 * d),
+             "to_q": _linear(d, inner), "to_k": _linear(d, inner),
+             "to_v": _linear(d, inner), "to_out": _linear(inner, d),
+             "ff1": _linear(d, cfg.ff_mult * d),
+             "ff2": _linear(cfg.ff_mult * d, d)}
+    conv = _conv_grouped(d, cfg.conv_pos_kernel, cfg.conv_pos_groups)
+    return {
+        "time_embed": {"fc1": _linear(cfg.time_freq_dim, d),
+                       "fc2": _linear(d, d)},
+        "text_embed": {"embed": {"weight": _n((cfg.text_num_embeds + 1,
+                                               td), 1.0)},
+                       "blocks": [text_block] * cfg.conv_layers},
+        "input_embed": {"proj": _linear(2 * cfg.mel_dim + td, d),
+                        "conv1": conv, "conv2": conv},
+        "blocks": [block] * cfg.depth,
+        "norm_out": _linear(d, 2 * d),
+        "proj_out": _linear(d, cfg.mel_dim),
+    }
+
+
+def f5_spec(cfg: F5PipelineConfig):
+    """Leaf specs of every tree the F5 chain reads."""
+    return {"dit": f5_dit_spec(cfg.dit), "vocoder": _vocoder_spec(cfg.vocoder)}
+
+
+def import_f5_state_dict(sd: Mapping[str, Any], cfg: F5DiTConfig) -> Dict:
+    """F5's ``DiT.state_dict()`` (numpy arrays or CPU tensors) as the port's
+    DiT tree of CPU fp32 tensors. F5's names (``backbones/dit.py``,
+    ``modules.py``): ``time_embed.time_mlp.{0,2}``,
+    ``text_embed.text_embed``, ``text_embed.text_blocks.{i}`` (``dwconv``,
+    ``norm``, ``pwconv1``, ``grn.gamma`` / ``grn.beta`` of shape [1, 1, C],
+    ``pwconv2``), ``input_embed.proj``,
+    ``input_embed.conv_pos_embed.conv1d.{0,2}``,
+    ``transformer_blocks.{i}`` (``attn_norm.linear``, ``attn.to_q`` /
+    ``to_k`` / ``to_v``, ``attn.to_out.0``, ``ff.ff.0.0``, ``ff.ff.2``),
+    ``norm_out.linear`` and ``proj_out``. A checkpoint's prefix (the CFM's
+    ``transformer.``, an EMA's ``ema_model.transformer.``) is found and
+    dropped; buffers (``rotary_embed.inv_freq``, the mel analysis) are not
+    read."""
+    mark = "time_embed.time_mlp.0.weight"
+    found = [k for k in sd if k.endswith(mark)]
+    if len(found) != 1:
+        raise KeyError(f"no single {mark!r} in the state_dict")
+    pre = found[0][:-len(mark)]
+
+    def arr(name):
+        return torch.as_tensor(np.array(sd[pre + name], dtype=np.float32,
+                                        copy=True))
+
+    def lin(name):
+        return {"weight": arr(f"{name}.weight"), "bias": arr(f"{name}.bias")}
+
+    text_blocks = [{
+        "dwconv": lin(f"text_embed.text_blocks.{i}.dwconv"),
+        "norm": lin(f"text_embed.text_blocks.{i}.norm"),
+        "pwconv1": lin(f"text_embed.text_blocks.{i}.pwconv1"),
+        "grn": {"gamma": arr(f"text_embed.text_blocks.{i}.grn.gamma")
+                .reshape(-1),
+                "beta": arr(f"text_embed.text_blocks.{i}.grn.beta")
+                .reshape(-1)},
+        "pwconv2": lin(f"text_embed.text_blocks.{i}.pwconv2")}
+        for i in range(cfg.conv_layers)]
+    blocks = [{
+        "attn_norm": lin(f"transformer_blocks.{i}.attn_norm.linear"),
+        "to_q": lin(f"transformer_blocks.{i}.attn.to_q"),
+        "to_k": lin(f"transformer_blocks.{i}.attn.to_k"),
+        "to_v": lin(f"transformer_blocks.{i}.attn.to_v"),
+        "to_out": lin(f"transformer_blocks.{i}.attn.to_out.0"),
+        "ff1": lin(f"transformer_blocks.{i}.ff.ff.0.0"),
+        "ff2": lin(f"transformer_blocks.{i}.ff.ff.2")}
+        for i in range(cfg.depth)]
+    pos = "input_embed.conv_pos_embed.conv1d"
+    return {
+        "time_embed": {"fc1": lin("time_embed.time_mlp.0"),
+                       "fc2": lin("time_embed.time_mlp.2")},
+        "text_embed": {"embed": {"weight": arr(
+                           "text_embed.text_embed.weight")},
+                       "blocks": text_blocks},
+        "input_embed": {"proj": lin("input_embed.proj"),
+                        "conv1": lin(f"{pos}.0"), "conv2": lin(f"{pos}.2")},
+        "blocks": blocks,
+        "norm_out": lin("norm_out.linear"),
+        "proj_out": lin("proj_out"),
+    }
+
+
+def init_f5_params(cfg: F5PipelineConfig, seed: int = 0) -> F5Params:
+    """Random CPU fp32 F5 trees (``f5_spec``) from one numpy seed."""
+    return F5Params(**tree_map(torch.from_numpy,
+                               fill_spec(f5_spec(cfg), seed)))
 
 
 def byt5_spec(cfg: ByT5Config):

@@ -39,7 +39,8 @@ Each step records the spans (``utils/profiling.py``) ``train.step`` over
 ``train.place`` (``_placed``), ``train.encode`` (the DiTTo frozen encode),
 ``train.forward`` (the loss), ``train.backward`` (``torch.autograd.grad``)
 and ``train.optimizer`` (the gradient's mean over the data group and
-AdamW).
+AdamW); under a data group of more than one rank, each mean over it (the
+gradient's, then the metrics') is a ``train.allreduce`` span.
 
 AdamW is optax's ``adamw`` (the reference's torch.optim.AdamW defaults:
 betas (0.9, 0.999), eps 1e-8, weight decay 1e-6, decay decoupled and
@@ -152,10 +153,11 @@ def _data_mean(tensors, mesh) -> list:
     tensors = list(tensors)
     if mesh is None or mesh.data == 1:
         return tensors
-    flat = torch.cat([t.reshape(-1).float() for t in tensors])
-    flat = mesh.all_reduce(flat, "data") / mesh.data
-    parts = torch.split(flat, [t.numel() for t in tensors])
-    return [p.view(t.shape).to(t.dtype) for p, t in zip(parts, tensors)]
+    with span("train.allreduce"):
+        flat = torch.cat([t.reshape(-1).float() for t in tensors])
+        flat = mesh.all_reduce(flat, "data") / mesh.data
+        parts = torch.split(flat, [t.numel() for t in tensors])
+        return [p.view(t.shape).to(t.dtype) for p, t in zip(parts, tensors)]
 
 
 def _metrics_mean(metrics: Dict, mesh) -> Dict:

@@ -9,9 +9,11 @@ serving chains record ``request`` (the root: batch, frames), ``encode``,
 ``slp``, ``sampler`` (the whole DDPM or DDIM loop; graph, "captured" or
 "eager") over ``sampler.capture`` (the capture of the step's CUDA graph,
 where there is one) and one ``sampler.step`` a step (step), ``vq``,
-``codec_decode``, ``mel`` and ``vocoder``; the train steps ``train.step`` over ``train.place``,
-``train.encode`` (DiTTo), ``train.forward``, ``train.backward`` and
-``train.optimizer``.
+``codec_decode``, ``mel`` and ``vocoder`` (the F5 chain: ``request`` over
+``mel``, ``text_encode``, ``sampler`` and ``vocoder``); the train steps
+``train.step`` over ``train.place``, ``train.encode`` (DiTTo),
+``train.forward``, ``train.backward`` and ``train.optimizer``, with a
+``train.allreduce`` around each mean over a data group of several ranks.
 
 Recording is off unless a ``recording()`` block is open. Off, ``span``
 tests one module variable and returns the shared object ``OFF``, whose
