@@ -19,10 +19,12 @@ Phases (any failure exits non-zero and prints no result line):
               DiT's four shapes; B at every bf16 shape class of the vocoder
               (kernel_bench.CONV_SHAPES), the SEANet shapes, and as the
               whole-batch conv #4 and its B=1 gate; C, also with the
-              residual epilogue at widths 48 / 24; D in both modes, on
-              [B, C, T] and [B, T, C], with a ragged T and T < 8); kernel
-              and library times (device ms of a replayed CUDA graph), the
-              plain version's, and the bound
+              residual epilogue at widths 48 / 24; D in its two Pallas
+              modes, on [B, C, T] and [B, T, C], with a ragged T and
+              T < 8, and in its polyphase mode, sin2 and sinf, at the
+              default path's 768-, 48- and 24-wide stages and at T of 1-17);
+              kernel and library times (device ms of a replayed CUDA
+              graph), the plain version's, and the bound
   4. serving  the full-width chain of bench.py (12-layer 768-wide DiT,
               50 DDPM steps, EnCodec 1.5 kbps, BigVGAN v2 24 kHz) through
               build_synthesize_pipelined: the 10 s bucket at B=4 (warm-up,
@@ -30,7 +32,7 @@ Phases (any failure exits non-zero and prints no result line):
               seed that must be bitwise equal) and the 20 s bucket at B=4;
               launches of every kernel, read over this phase, must be
               exactly those of the default path (per request A 1200, B 90,
-              C 54, D 0); the shapes of A's and B's calls in the untimed
+              C 54, D 55); the shapes of A's and B's calls in the untimed
               warm-up request
   5. parity   full width, 1 s prompt, B=1, fp32 with TF32 off, all 50
               steps (respaced to 4 steps, the first step's beta rounds to
@@ -40,7 +42,7 @@ Phases (any failure exits non-zero and prints no result line):
               (max|err| <= LATENT_TOL x max|CPU|), VQ index agreement, and
               the CPU's indices decoded on the card
   6. the vocoder under aa_impl="fused_pallas": the 10 s bucket at B=4
-     (warm-up and two timed requests; per request D 108, C 0; the shapes of
+     (warm-up and two timed requests; per request D 109, C 0; the shapes of
      A's and B's calls in the warm-up), the vocoder
      stage on phase 4's mel under both settings in turns, and the
      full-width vocoder at B=1, fp32, on the card against the CPU (max
@@ -54,7 +56,7 @@ Phases (any failure exits non-zero and prints no result line):
      max-length buffer) at max_audio_seconds=10 (750-frame buffer), B=4, 10
      s prompts, 64 GPT2 and 64 ByT5 ids: warm-up, two timed requests, a
      repeat of one seed that must be bitwise equal; per request exactly
-     the default path's launches (A 1200, B 90, C 54, D 0) and 2
+     the default path's launches (A 1200, B 90, C 54, D 55) and 2
      matmul-softmax attention calls in the decoder (head_dim > 128) and 12
      in ByT5 (biased), counted in the warm-up; the SLP, sampler and tail
      stages and the predicted frames; one request at the default
@@ -120,11 +122,11 @@ Phases (any failure exits non-zero and prints no result line):
      ECAPA random, --smoke-ortho --oracle-ref): every JSON key, finite,
      CER and WER >= 0, SIM-o and SIM-r in [-1, 1]; the CLI's batches in
      this process through its own evaluate_batch, twice: first with the
-     first call of kernels A, B and C at each shape and type held to its
+     first call of kernels A, B, C and D at each shape and type held to its
      plain version (fp32 DiT and codec, bf16 vocoder, at the 10 s and
      12.5 s buckets), then timed; in both, exact launches per evaluated
      batch (A 1200; B 236: the synthesis 90, the oracle render 90, two
-     codec round trips for SIM-r 28 each; C 108; D 0) and 4 decodes of
+     codec round trips for SIM-r 28 each; C 108; D 110) and 4 decodes of
      2388 matmul-softmax calls (12 + 198 x 6 x 2, no kernel launch);
      per-utterance synthesis, oracle render, ASR, ECAPA, codec and
      mel_mae times; S2T-medium encode, decode_logits and greedy_decode
@@ -156,11 +158,11 @@ Phases (any failure exits non-zero and prints no result line):
      32 guided Euler steps over 2B rows, BigVGAN v2 on the generated
      frames; random weights from numpy seed 0): one request of B=4 10 s
      prompts, 384 ids, 2,343 frames through build_synthesize_pipelined
-     with the first call of kernels A, B and C at each shape held to its
+     with the first call of kernels A, B, C and D at each shape held to its
      plain version (A at bf16 B8 H16 S2343 D64 in the step the capture
      runs eagerly; B and C at the vocoder's 1,406 generated frames), then
      the same seed timed (bitwise equal) and another seed; launches of
-     each request exactly F5's (A 704: one a block a step; C 54; D 0;
+     each request exactly F5's (A 704: one a block a step; C 54; D 55;
      B as the held request counted it), and the shapes of A's and B's
      calls in the held request
  15. a {"kernels": [...]} line, then the card line, then the last line
@@ -216,16 +218,20 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-# launches of each kernel per 10 s / B=4 request on each path
-DEFAULT_PATH = {"attention": 1200, "conv1d": 90, "act_conv": 54, "snake": 0}
+# launches of each kernel per 10 s / B=4 request on each path; D: the
+# vocoder's standalone activations (the default path's 18 at each of 768,
+# 48 and 24 channels and act_post in the polyphase mode; fused_pallas's
+# 108 in the Pallas modes and act_post in the polyphase mode)
+DEFAULT_PATH = {"attention": 1200, "conv1d": 90, "act_conv": 54, "snake": 55}
 FUSED_PALLAS_PATH = {"attention": 1200, "conv1d": 90 + 54, "act_conv": 0,
-                     "snake": 108}
-# BigVGAN's last two stages under aa_impl="fused_ncl", one forward
-FUSED_NCL_PATH = {"attention": 0, "conv1d": 4, "act_conv": 36, "snake": 0}
+                     "snake": 109}
+# BigVGAN's last two stages under aa_impl="fused_ncl", one forward (D:
+# act_post)
+FUSED_NCL_PATH = {"attention": 0, "conv1d": 4, "act_conv": 36, "snake": 1}
 # launches of kernels A, C and D per F5 request at the published widths
-# (22 blocks x 32 guided steps; BigVGAN's act->conv pairs); B's count is
-# read from the phase's held request
-F5_PATH = {"attention": 22 * 32, "act_conv": 54, "snake": 0}
+# (22 blocks x 32 guided steps; BigVGAN's act->conv pairs and standalone
+# activations); B's count is read from the phase's held request
+F5_PATH = {"attention": 22 * 32, "act_conv": 54, "snake": 55}
 # matmul-softmax attention per SLP-chain request (no kernel: JAX computes
 # it outside Pallas): the decoder's self and cross attention over one
 # 1472-wide head, ByT5's biased attention in each of its 12 layers, and
@@ -316,8 +322,9 @@ class PlainAttentionLog:
 
 @contextlib.contextmanager
 def held_to_plain(checks, label: str):
-    """Within it, the first call of kernels A, B and C at each shape and
-    type also runs the kernel's plain version on the same inputs and passes
+    """Within it, the first call of kernels A, B, C and D (its polyphase
+    mode) at each shape and type also runs the kernel's plain version on
+    the same inputs and passes
     through ``checks.compare``; yields {kernel and shape: max_abs_err}.
     The kernel's result goes on unchanged (the wrappers are looked up at
     call time, as in ``ShapeLog``), and the plain versions count no
@@ -326,9 +333,10 @@ def held_to_plain(checks, label: str):
     eager warm-up of a new shape, before its capture, holds it."""
     import torch
     from ditto_tts_tpu_torch.ops import act_conv as C, attention as A, \
-        conv as B
-    saved = (A.attention_cuda, B.conv1d_cuda, C.aa_snake_conv1d_cuda)
-    attn, conv, act = saved
+        conv as B, snake_fused as D
+    saved = (A.attention_cuda, B.conv1d_cuda, C.aa_snake_conv1d_cuda,
+             D.polyphase_snake_cuda)
+    attn, conv, act, poly = saved
     seen = {}
 
     def held(key):
@@ -382,12 +390,20 @@ def held_to_plain(checks, label: str):
                     lambda: C.aa_snake_conv1d_plain(x, a, inv_b, weight,
                                                     bias, **kw))
 
-    A.attention_cuda, B.conv1d_cuda, C.aa_snake_conv1d_cuda = \
-        held_attn, held_conv, held_act
+    def held_poly(x, a, inv_b, *, fast):
+        b, c, t = x.shape
+        dn = str(x.dtype)[6:]
+        return hold("snake", f"polyphase {dn} B{b} C{c} T{t} fast={fast}",
+                    dn, poly(x, a, inv_b, fast=fast),
+                    lambda: D.polyphase_snake_plain(x, a, inv_b, fast=fast))
+
+    (A.attention_cuda, B.conv1d_cuda, C.aa_snake_conv1d_cuda,
+     D.polyphase_snake_cuda) = held_attn, held_conv, held_act, held_poly
     try:
         yield seen
     finally:
-        A.attention_cuda, B.conv1d_cuda, C.aa_snake_conv1d_cuda = saved
+        (A.attention_cuda, B.conv1d_cuda, C.aa_snake_conv1d_cuda,
+         D.polyphase_snake_cuda) = saved
 
 
 def check_launches(path: str, launches: dict, per_request: dict, n: int):
@@ -436,8 +452,9 @@ def kernel_phase(torch, rec):
     from ditto_tts_tpu_torch.ops.conv import (conv1d_cuda, conv1d_ncl_batched,
                                               conv1d_plain)
     from ditto_tts_tpu_torch.ops.snake import snake_coeffs
-    from ditto_tts_tpu_torch.ops.snake_fused import (fused_snake_cuda,
-                                                     fused_snake_plain)
+    from ditto_tts_tpu_torch.ops.snake_fused import (
+        fused_snake_cuda, fused_snake_plain, polyphase_snake_cuda,
+        polyphase_snake_plain)
 
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(1234)
@@ -671,7 +688,47 @@ def kernel_phase(torch, rec):
                                 x, a, inv_b, up_in_x_dtype=up_x),
                             55.0 * x.numel(), nbytes(x, got, a, inv_b),
                             torch.float32)
-    entries["snake"] = sites["#9 C384"]
+
+    # ---- D in its polyphase mode (polyphase_anti_aliased_activation with
+    # snake_beta): bf16 at the default path's 768-, 48- and 24-wide stages
+    # in a 10 s request (timed against the stock ops it replaces), fp32,
+    # sinf, plain Snake, T shorter than the edges' reach and one run + 1,
+    # and [B, C, T] views an odd number of elements into their storage ----
+    p_cases = [(768, 3748), (48, 119936), (24, 239872), (24, 1), (48, 3),
+               (768, 17), (40, 1000)]
+    for c, t in p_cases:
+        for dt in dtypes:
+            dn = str(dt).split(".")[1]
+            for fast in (True, False):
+                for with_beta in (True, False):
+                    a, inv_b = snake_coeffs(rn(c, scale=0.3), rn(
+                        c, scale=0.3) if with_beta else None)
+                    views = ["[B,C,T]"] + (["[B,C,T] at offset 1"]
+                                           if t <= 1000 else [])
+                    for view in views:
+                        if view == "[B,C,T]":
+                            x = rn(4, c, t, dtype=dt, scale=2.0)
+                        else:
+                            x = rn(1 + 4 * c * t, dtype=dt,
+                                   scale=2.0)[1:].view(4, c, t)
+                        got = polyphase_snake_cuda(x, a, inv_b, fast=fast)
+                        want = polyphase_snake_plain(x, a, inv_b, fast=fast)
+                        err = checks.compare(
+                            "snake", f"polyphase {dn} B4 C{c} T{t} {view} "
+                            + ("sin2 " if fast else "sinf ")
+                            + ("snakebeta" if with_beta else "snake"), got,
+                            want, dn)
+                        del want
+                        if dt == bf16 and fast and with_beta and t >= 3748:
+                            sites[f"polyphase C{c}"] = timed(
+                                f"bf16 B=4 C={c} T={t} {view} polyphase",
+                                err, lambda: polyphase_snake_cuda(
+                                    x, a, inv_b, fast=True),
+                                lambda: polyphase_snake_plain(
+                                    x, a, inv_b, fast=True),
+                                55.0 * x.numel(), nbytes(x, got, a, inv_b),
+                                torch.float32)
+    entries["snake"] = sites["polyphase C48"]
     if checks.bad:
         fail("kernel parity: " + "; ".join(checks.bad))
     for name, e in list(entries.items()) + list(sites.items()):
@@ -922,8 +979,8 @@ def fused_pallas_phase(torch, cfg, params, params_cpu, inputs, mel, rec):
         bigvgan_forward, params.vocoder, params_cpu.vocoder, vcfg,
         mel[:1, :, :94].float())
     if out["card_vs_cpu"]["launches"]["snake"] != FUSED_PALLAS_PATH["snake"]:
-        fail("fused_pallas: kernel D was not launched 108 times in one "
-             "vocoder forward")
+        fail(f"fused_pallas: kernel D was not launched "
+             f"{FUSED_PALLAS_PATH['snake']} times in one vocoder forward")
     rec["fused_pallas"] = out
     return launches
 
@@ -2449,7 +2506,8 @@ def eval_phase(torch, np, cfg, params_cpu, dev, card, rec):
         want_launches = {
             "attention": DEFAULT_PATH["attention"],
             "conv1d": 2 * DEFAULT_PATH["conv1d"] + EVAL_BATCH * round_trip,
-            "act_conv": 2 * DEFAULT_PATH["act_conv"], "snake": 0}
+            "act_conv": 2 * DEFAULT_PATH["act_conv"],
+            "snake": 2 * DEFAULT_PATH["snake"]}
         per_decode = greedy_attention_calls(s2t_cfg, ev.ASR_MAX_LEN)
         want_plain = {"decoder": 0, "byt5": 0, "gpt2": 0,
                       "s2t": 2 * EVAL_BATCH * per_decode}
@@ -2497,11 +2555,11 @@ def eval_phase(torch, np, cfg, params_cpu, dev, card, rec):
                 f"synthesis {b['s']['synthesis']:.3f} s, oracle render "
                 f"{b['s']['oracle']:.3f} s; launches {b['launches']} "
                 f"(exact), {want_plain['s2t']} matmul-softmax calls (exact)"
-                f"; {len(held)} shapes of A, B and C held to their plain "
+                f"; {len(held)} shapes of A, B, C and D held to their plain "
                 "versions in the first pass, the largest max_abs_err "
                 f"{max(held.values()):.3e}")
         if checks.bad:
-            fail("kernels A, B and C in the evaluated batches: " +
+            fail("kernels A, B, C and D in the evaluated batches: " +
                  "; ".join(checks.bad))
         for u in per_utt:
             log(f"  utterance {u['seconds']:g} s: synthesis "
@@ -3029,7 +3087,7 @@ def parallel_phase(torch, np, card, rec):
 
 def f5_phase(torch, np, card, rec) -> dict:
     """One F5 request at the published widths held to the plain versions
-    of A, B and C, then timed requests; returns the launches of one
+    of A, B, C and D, then timed requests; returns the launches of one
     request."""
     from ditto_tts_tpu_torch import kernels
     from ditto_tts_tpu_torch.config import F5PipelineConfig
@@ -3184,8 +3242,7 @@ def main() -> None:
     parity_phase(torch, np, cfg, params_cpu, params, rec)
 
     log('== 6. aa_impl="fused_pallas": serving, vocoder stage, card vs CPU')
-    launches_fp = fused_pallas_phase(torch, cfg, params, params_cpu, inputs,
-                                     mel, rec)
+    fused_pallas_phase(torch, cfg, params, params_cpu, inputs, mel, rec)
 
     log('== 7. aa_impl="fused_ncl" on BigVGAN\'s last two stages')
     fused_ncl_phase(torch, np, cfg, params, rec)
@@ -3240,11 +3297,10 @@ def main() -> None:
                     "aa_snake_conv1d (#6) + :303 aa_snake_conv1d_ncl (#7)",
         "snake": "ditto_tts_tpu/ops/snake_pallas.py:109 fused_snake_pallas "
                  "(#8) + ditto_tts_tpu/ops/snake_pallas_nlc.py:80 "
-                 "fused_snake_nlc (#9)"}
-    # each kernel's count from the run of the path that carries it: the
-    # default serving phase (5 requests) for A, B, C; phase 6 (3 requests)
-    # for D
-    counted = dict(launches, snake=launches_fp["snake"])
+                 "fused_snake_nlc (#9) + the XLA-fused ops/snake.py:83 "
+                 "polyphase_anti_aliased_activation (no Pallas kernel)"}
+    # each kernel's count from the default serving phase (5 requests)
+    counted = launches
     line = {"kernels": [dict(
         name=name, route="cuda",
         source=f"ditto_tts_tpu_torch/csrc/{name}.cu",

@@ -9,7 +9,7 @@
 // replicate pad of the Pallas kernels), the run's outputs y[j] = out(t0+j):
 //   SE[i] = s(e(t0 - 2 + i)),  SO[i] = s(o(t0 - 3 + i)),   i < N + 5
 //   e, o: 6-tap upsample phases, both reading xr[i .. i+5]
-//   s(v)  = v + inv_b * sin2(a*v)                     (fp32)
+//   s(v)  = v + inv_b * sin2(a*v)   (fp32; FAST = false: sinf(a*v)^2)
 //   y[j]  = sum_m de[m] SE[j+m] + dn[m] SO[j+m]        (fp32)
 // Two orders of summation, one function up to fp32 rounding (the filter is
 // symmetric), each that of a plain version:
@@ -21,6 +21,15 @@
 // rounded to bf16 and so is each running sum but the last, as XLA computes
 // fused_snake_pallas in x's type; done two phase rows at a time in bf16x2
 // arithmetic, which rounds exactly so (mul.rn / add.rn, never fused).
+// POLY (kernel D's polyphase mode, ops/snake.py
+// polyphase_anti_aliased_activation): the phase rows outside [0, T) are
+// not computed from the clamped x but take the polyphase form's 2x-rate
+// replicate edges, s(e(0)) on the left and s(o(T-1)) on the right for both
+// phases (the caller passes e(0) and o(T-1), summed as the rows are, so
+// the snake of each is the row's own); the phases sum as REV = false, and
+// the decimation sums its s(o) and s(e) terms apart and then adds the two,
+// in the plain form's order. Only runs within 3 samples of either end
+// change.
 // sin2 is sin^2 by the Pallas kernels' pi-periodic reduction and odd
 // polynomial (ditto_tts_tpu/ops/fastmath.py; the port's ops/snake.py:sin2
 // keeps the same constants): branch-free, ~11 instructions. sinf measured
@@ -54,8 +63,16 @@ __device__ __forceinline__ float sin2f(float v) {
   return s * s;
 }
 
+// FAST: sin^2 by sin2f (the Pallas kernels' and ops.snake.sin2's), else
+// by sinf (snake_beta(fast=False), torch.sin)
+template <bool FAST = true>
 __device__ __forceinline__ float snake_act(float v, float a, float inv_b) {
-  return v + inv_b * sin2f(a * v);
+  if constexpr (FAST) {
+    return v + inv_b * sin2f(a * v);
+  } else {
+    const float s = sinf(a * v);
+    return v + inv_b * (s * s);
+  }
 }
 
 // NV 16-byte vectors from global memory at p (16-byte aligned) into words,
@@ -132,12 +149,17 @@ __device__ __forceinline__ void up_pair_bf16(const uint32_t (&X2)[W], int i,
 }
 
 // xr[i] = x[t0 - 5 + i] for i < N + 11 (the last one is read only under
-// UP_X); y[j] = the activation at t0 + j, j < N
-template <bool UP_X, bool REV, int N>
+// UP_X); y[j] = the activation at t0 + j, j < N. Read only under POLY: t0,
+// T, and in a run within 3 samples of either end e0 = e(0) and oT =
+// o(T-1), the phase rows (before the snake) that the rows outside [0, T)
+// take.
+template <bool UP_X, bool REV, int N, bool POLY = false, bool FAST = true>
 __device__ __forceinline__ void aa_act(const float (&xr)[N + 11], float a,
                                        float inv_b, const AaTaps& tp,
-                                       float (&y)[N]) {
+                                       float (&y)[N], int t0 = 0, int T = 0,
+                                       float e0 = 0.f, float oT = 0.f) {
   static_assert(!UP_X || REV, "UP_X is kernel D's #8 mode");
+  static_assert(!POLY || (!UP_X && !REV), "POLY sums in the plain order");
   constexpr int NP = N + 5 + (UP_X ? (N + 5) % 2 : 0);
   float se[NP], so[NP];
   if constexpr (UP_X) {
@@ -161,20 +183,45 @@ __device__ __forceinline__ void aa_act(const float (&xr)[N + 11], float a,
       so[i] = up_row<REV>(xr, i, tp.uo);
     }
   }
+  if constexpr (POLY) {
+    // rows e(t0 - 2 + i) and o(t0 - 3 + i) outside [0, T), each a row
+    // apart, so no row waits on another
+    if (t0 < 3 || t0 + N + 3 > T) {
 #pragma unroll
-  for (int i = 0; i < N + 5; ++i) {
-    se[i] = snake_act(se[i], a, inv_b);
-    so[i] = snake_act(so[i], a, inv_b);
+      for (int i = 0; i < N + 5; ++i) {
+        const int ue = t0 - 2 + i, uo = t0 - 3 + i;
+        se[i] = ue < 0 ? e0 : ue >= T ? oT : se[i];
+        so[i] = uo < 0 ? e0 : uo >= T ? oT : so[i];
+      }
+    }
   }
 #pragma unroll
-  for (int j = 0; j < N; ++j) {
-    float acc = REV ? tp.de[0] * se[j] + tp.dn[0] * so[j]
-                    : tp.dn[0] * so[j] + tp.de[0] * se[j];
+  for (int i = 0; i < N + 5; ++i) {
+    se[i] = snake_act<FAST>(se[i], a, inv_b);
+    so[i] = snake_act<FAST>(so[i], a, inv_b);
+  }
+  if constexpr (POLY) {
 #pragma unroll
-    for (int m = 1; m < 6; ++m)
-      acc = REV ? acc + tp.de[m] * se[j + m] + tp.dn[m] * so[j + m]
-                : acc + tp.dn[m] * so[j + m] + tp.de[m] * se[j + m];
-    y[j] = acc;
+    for (int j = 0; j < N; ++j) {
+      float ao = tp.dn[0] * so[j], ae = tp.de[0] * se[j];
+#pragma unroll
+      for (int m = 1; m < 6; ++m) {
+        ao = ao + tp.dn[m] * so[j + m];
+        ae = ae + tp.de[m] * se[j + m];
+      }
+      y[j] = ao + ae;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      float acc = REV ? tp.de[0] * se[j] + tp.dn[0] * so[j]
+                      : tp.dn[0] * so[j] + tp.de[0] * se[j];
+#pragma unroll
+      for (int m = 1; m < 6; ++m)
+        acc = REV ? acc + tp.de[m] * se[j + m] + tp.dn[m] * so[j + m]
+                  : acc + tp.dn[m] * so[j + m] + tp.de[m] * se[j + m];
+      y[j] = acc;
+    }
   }
 }
 

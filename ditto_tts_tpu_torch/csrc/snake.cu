@@ -11,6 +11,18 @@
 // The wrapper passes the (b, c, t) strides of either layout, so the port's
 // [B, C, T] carry and a [B, T, C] view go through without copies.
 //
+// The polyphase mode (POLY) replaces no Pallas kernel: it is
+// ops/snake.py polyphase_anti_aliased_activation with snake_beta, which
+// XLA fuses where the JAX vocoder's _act_nlc and _act call it with
+// fast=True (the default aa_impl="fused_conv": the 768-wide stage, the
+// 48- and 24-wide stages and act_post, 55 calls a request). It is the
+// same function but for the edges: the phase rows outside [0, T) take the
+// 2x-rate replicate values s(e(0)) and s(o(T-1)) (aa_act.cuh), so only
+// the first and last run of a row differ from the Pallas mode; the sums
+// run in the plain form's order, and sin^2 is sin2f (fast) or sinf. Like
+// the Pallas mode it is bound by its bytes, one read and one write of
+// bf16 a sample.
+//
 // Arithmetic (aa_act.cuh, REV order, as fused_snake_plain): per channel,
 // a = exp(alpha), inv_b = 1/(exp(beta)+1e-9), h the 12-tap kaiser-sinc
 // low-pass, x replicate-padded (the index clamped to [0, T)):
@@ -58,7 +70,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRun = 16;   // outputs per thread
 
-template <typename T, bool UP_X, bool TIME_MINOR>
+template <typename T, bool UP_X, bool TIME_MINOR, bool POLY, bool FAST>
 __global__ void __launch_bounds__(kThreads)
 snake_kernel(const T* __restrict__ x, const float* __restrict__ a,
              const float* __restrict__ inv_b, T* __restrict__ y,
@@ -95,8 +107,22 @@ snake_kernel(const T* __restrict__ x, const float* __restrict__ a,
       w[i] = to_f<T>(xr[t * xst]);
     }
   }
+  // the polyphase edges: e(0) and o(T-1), from x's first and last 3
+  // samples (the index clamped), in the order aa_act sums its rows
+  float e0 = 0.f, oT = 0.f;
+  if (POLY && (t0 < 3 || t0 + kRun + 3 > Tlen)) {
+    float xe[6], xo[6];
+#pragma unroll
+    for (int r = 0; r < 6; ++r) {
+      xe[r] = to_f<T>(xr[min(max(r - 3, 0), Tlen - 1) * xst]);
+      xo[r] = to_f<T>(xr[max(min(Tlen - 3 + r, Tlen - 1), 0) * xst]);
+    }
+    e0 = up_row<false>(xe, 0, taps.ue);
+    oT = up_row<false>(xo, 0, taps.uo);
+  }
   float out[kRun];
-  aa_act<UP_X, true, kRun>(w, a[c], inv_b[c], taps, out);
+  aa_act<UP_X, !POLY, kRun, POLY, FAST>(w, a[c], inv_b[c], taps, out, t0,
+                                        Tlen, e0, oT);
 
   if (TIME_MINOR && yst == 1 && t0 >= 0 && t0 + kRun <= Tlen &&
       reinterpret_cast<uintptr_t>(yr + t0) % 16 == 0) {
@@ -114,7 +140,7 @@ snake_kernel(const T* __restrict__ x, const float* __restrict__ a,
   }
 }
 
-template <typename T, bool UP_X>
+template <typename T, bool UP_X, bool POLY, bool FAST>
 cudaError_t launch(const void* x, const float* a, const float* inv_b, void* y,
                    const AaTaps& taps, int B, int C, int Tlen,
                    const long long* xs, const long long* ys, bool time_minor,
@@ -125,30 +151,61 @@ cudaError_t launch(const void* x, const float* a, const float* inv_b, void* y,
     // runs of a row shifted back by up to E-1 samples: one more may be needed
     const int runs = (Tlen + 16 / static_cast<int>(sizeof(T)) - 1 + kRun - 1) / kRun;
     const dim3 grid((runs + kThreads - 1) / kThreads, C, B);
-    snake_kernel<T, UP_X, true><<<grid, kThreads, 0, s>>>(
+    snake_kernel<T, UP_X, true, POLY, FAST><<<grid, kThreads, 0, s>>>(
         xp, a, inv_b, yp, taps, C, Tlen, xs[0], xs[1], xs[2], ys[0], ys[1],
         ys[2]);
   } else {
     constexpr int TB = kThreads / 32 * kRun;
     const dim3 grid((Tlen + TB - 1) / TB, (C + 31) / 32, B);
-    snake_kernel<T, UP_X, false><<<grid, kThreads, 0, s>>>(
+    snake_kernel<T, UP_X, false, POLY, FAST><<<grid, kThreads, 0, s>>>(
         xp, a, inv_b, yp, taps, C, Tlen, xs[0], xs[1], xs[2], ys[0], ys[1],
         ys[2]);
   }
   return cudaGetLastError();
 }
 
+// the modes of ditto_snake
+enum Mode : int { kPallasF32Taps = 0, kPallasXTaps = 1, kPoly = 2,
+                  kPolySinf = 3 };
+
+template <typename T>
+cudaError_t launch_mode(int mode, const void* x, const float* a,
+                        const float* inv_b, void* y, const AaTaps& taps, int B,
+                        int C, int Tlen, const long long* xs,
+                        const long long* ys, bool tm, cudaStream_t s) {
+  // fp32 x: rounding to x's type is exact, so #8 and #9 are one function
+  constexpr bool kXTaps = sizeof(T) == 2;
+  switch (mode) {
+    case kPallasF32Taps:
+      return launch<T, false, false, true>(x, a, inv_b, y, taps, B, C, Tlen,
+                                           xs, ys, tm, s);
+    case kPallasXTaps:
+      return launch<T, kXTaps, false, true>(x, a, inv_b, y, taps, B, C, Tlen,
+                                            xs, ys, tm, s);
+    case kPoly:
+      return launch<T, false, true, true>(x, a, inv_b, y, taps, B, C, Tlen,
+                                          xs, ys, tm, s);
+    case kPolySinf:
+      return launch<T, false, true, false>(x, a, inv_b, y, taps, B, C, Tlen,
+                                           xs, ys, tm, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 }  // namespace ditto
 
 // x, y: [B, C, T] with element strides xs / ys (3 each, in elements);
-// a / inv_b [C] fp32; taps: 24 floats (2h[2m+1], 2h[2m], h[2m+1], h[2m]);
-// up_x: 1 = upsample taps in x's type (fused_snake_pallas), 0 = fp32
-// (fused_snake_nlc); time_minor: 1 when time is the minor dimension.
+// a / inv_b [C] fp32; taps: 24 floats (upsample taps of e, of o;
+// decimation taps on s(e), on s(o); each in the order its mode sums);
+// mode: 0 = the Pallas edges with fp32 upsample taps (fused_snake_nlc),
+// 1 = the Pallas edges with taps in x's type (fused_snake_pallas), 2 = the
+// polyphase form with sin2, 3 = the polyphase form with sinf;
+// time_minor: 1 when time is the minor dimension.
 extern "C" int ditto_snake(const void* x, const float* a, const float* inv_b,
                            void* y, const float* taps, int B, int C, int T,
                            const long long* xs, const long long* ys,
-                           int up_x, int time_minor, int dtype, void* stream) {
+                           int mode, int time_minor, int dtype, void* stream) {
   using namespace ditto;
   AaTaps tp;
   for (int m = 0; m < 6; ++m) {
@@ -161,11 +218,10 @@ extern "C" int ditto_snake(const void* x, const float* a, const float* inv_b,
   const bool tm = time_minor != 0;
   if (B > 65535 || C > 65535)   // grid.y / grid.z
     return static_cast<int>(cudaErrorInvalidValue);
-  // fp32 x: rounding to x's type is exact, so #8 and #9 are one function
   if (dtype == kFloat32)
-    return launch<float, false>(x, a, inv_b, y, tp, B, C, T, xs, ys, tm, s);
+    return launch_mode<float>(mode, x, a, inv_b, y, tp, B, C, T, xs, ys, tm, s);
   if (dtype == kBFloat16)
-    return up_x ? launch<__nv_bfloat16, true>(x, a, inv_b, y, tp, B, C, T, xs, ys, tm, s)
-                : launch<__nv_bfloat16, false>(x, a, inv_b, y, tp, B, C, T, xs, ys, tm, s);
+    return launch_mode<__nv_bfloat16>(mode, x, a, inv_b, y, tp, B, C, T, xs,
+                                      ys, tm, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -16,8 +16,8 @@ function (kernel D with fp32 taps -> zero pad -> kernel B, plus the
 residual) and ``F.conv1d`` on the activated, padded signal alone.
 
 It calls only the wrappers' public names (``attention_cuda``,
-``conv1d_cuda``, ``aa_snake_conv1d_cuda``, ``fused_snake_cuda`` and their
-plain versions), so a copy of this file in an older checkout's package
+``conv1d_cuda``, ``aa_snake_conv1d_cuda``, ``fused_snake_cuda``,
+``polyphase_snake_cuda`` and their plain versions), so a copy of this file in an older checkout's package
 times that checkout's kernels: two versions are compared in one call on one
 card by running both, in turns. ``chip_smoke.py`` phase 3 runs the A and B
 shapes through ``run_attention`` and ``run_conv``. Needs one CUDA card.
@@ -87,6 +87,9 @@ ACT_CONV_SHAPES = tuple(
 # (label, B, C, T, up_x): kernel D under aa_impl="fused_pallas", one 10 s
 # request at B=4: #9 (fp32 upsample taps) on the NLC stages, #8 (taps in
 # x's type) on the NCL-hybrid ones; 18 launches at each shape
+# (label, B, C, T, up_x): kernel D in a Pallas mode (up_x: taps in x's
+# type) under aa_impl="fused_pallas", or (up_x None) in its polyphase mode
+# with sin2, the default path's standalone activations
 SNAKE_SHAPES = (
     ("#9 768", 4, 768, 3748, False),
     ("#9 384", 4, 384, 14992, False),
@@ -94,6 +97,9 @@ SNAKE_SHAPES = (
     ("#9 96", 4, 96, 59968, False),
     ("#8 48", 4, 48, 119936, True),
     ("#8 24", 4, 24, 239872, True),
+    ("polyphase 768", 4, 768, 3748, None),
+    ("polyphase 48", 4, 48, 119936, None),
+    ("polyphase 24", 4, 24, 239872, None),
 )
 
 
@@ -299,17 +305,22 @@ def run_snake(torch, gen, compare=None):
         x = (2.0 * torch.randn(b, c, t, generator=gen,
                                device="cuda")).bfloat16()
         a, inv_b = _snake_coeffs(torch, gen, c)
-        got = D.fused_snake_cuda(x, a, inv_b, up_in_x_dtype=up_x)
-        want = D.fused_snake_plain(x, a, inv_b, up_in_x_dtype=up_x)
+        if up_x is None:
+            def kernel():
+                return D.polyphase_snake_cuda(x, a, inv_b, fast=True)
+            want = D.polyphase_snake_plain(x, a, inv_b, fast=True)
+        else:
+            def kernel():
+                return D.fused_snake_cuda(x, a, inv_b, up_in_x_dtype=up_x)
+            want = D.fused_snake_plain(x, a, inv_b, up_in_x_dtype=up_x)
+        got = kernel()
         if compare is not None:
             compare(f"{label} B{b} C{c} T{t}", got, want)
         err, rel = _rel_err(torch, got, want)
         del want
         rows.append(_row(torch, label, f"bf16 B={b} C={c} T={t} ({label})",
-                         lambda: D.fused_snake_cuda(x, a, inv_b,
-                                                    up_in_x_dtype=up_x),
-                         None, 55.0 * x.numel(), _nbytes(x, a, inv_b, got),
-                         err, rel, PEAK_FP32))
+                         kernel, None, 55.0 * x.numel(),
+                         _nbytes(x, a, inv_b, got), err, rel, PEAK_FP32))
     return rows
 
 

@@ -29,7 +29,9 @@ stages of the nlc layout are "NLC" stages. W is the stage's width.
   act_post after an NLC stage: a standalone NLC act (fused_conv: polyphase)
 
 "C pairs" run each act->conv pair as one call of kernel C
-(``ops.act_conv``); "raises" is the JAX package's NotImplementedError. As
+(``ops.act_conv``); "polyphase" is ``ops.snake_fused.polyphase_snake``,
+one launch of kernel D in its polyphase mode on a CUDA tensor; "raises"
+is the JAX package's NotImplementedError. As
 in the JAX package, the fused kernels (C and D, as their Pallas
 counterparts) take the pi-periodic polynomial sin^2 (``ops.snake.sin2``,
 within ~5e-7 of sin^2 for |alpha x| <~ 1e3, more beyond), and so do the
@@ -52,9 +54,8 @@ from ..nn.conv import conv_transpose1d_poly
 from ..ops.act_conv import aa_snake_conv1d, aa_snake_conv1d_ncl
 from ..ops.conv import conv1d
 from ..ops.snake import (anti_aliased_activation,
-                         polyphase_anti_aliased_activation,
                          polyphase_anti_aliased_activation_gemm, snake_beta)
-from ..ops.snake_fused import fused_snake, fused_snake_nlc
+from ..ops.snake_fused import fused_snake, fused_snake_nlc, polyphase_snake
 
 FUSED_WIDTHS = (96, 384)   # the JAX fused_conv dispatch band, inclusive
 NARROW = 96                # below: NCL-hybrid stages, no fused_snake_nlc
@@ -85,7 +86,8 @@ def _act(x, act_params, cfg: VocoderConfig, impl: str, fast: bool = False):
         return fused_snake(x, act_params["alpha"], act_params.get("beta"),
                            logscale=cfg.snake_logscale)
     if impl == "polyphase":
-        return polyphase_anti_aliased_activation(x, fn)
+        return polyphase_snake(x, act_params["alpha"], _beta(act_params, cfg),
+                               logscale=cfg.snake_logscale, fast=fast)
     return anti_aliased_activation(x, fn)
 
 
@@ -113,7 +115,8 @@ def _act_nlc(x, act_params, cfg: VocoderConfig, impl: str):
             "nlc layout supports aa_impl in ('polyphase', 'polyphase_gemm',"
             f" 'fused_pallas') only (got {impl!r}); use layout='ncl' for "
             "the oracle paths")
-    return polyphase_anti_aliased_activation(x, fn)
+    return polyphase_snake(x, act_params["alpha"], _beta(act_params, cfg),
+                           logscale=cfg.snake_logscale, fast=fast)
 
 
 def _conv_same(p, x, *, dilation: int = 1, cdt=None):

@@ -24,28 +24,17 @@ residual in the output type) instead; the halo rounds to 16 samples for
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .. import kernels
 from .conv import conv1d, conv1d_plain
-from .snake import aa_filter, polyphase_anti_aliased_activation, sin2, \
-    snake_beta, snake_coeffs
+from .snake import sin2, snake_coeffs
+from .snake_fused import polyphase_snake, polyphase_taps
 
 _AH = 8   # the Pallas kernel's activation halo rows per side
-
-
-@functools.lru_cache(maxsize=1)
-def fused_taps() -> np.ndarray:
-    """[24] fp32: upsample phases 2h[2r], 2h[2r+1], decimation phases
-    h[2r+1] (on the even branch), h[2r] (on the odd branch)."""
-    h = aa_filter()
-    return np.concatenate([2.0 * h[0::2], 2.0 * h[1::2], h[1::2],
-                           h[0::2]]).astype(np.float32)
 
 
 def aa_snake_conv1d_plain(x, a, inv_b, weight, bias=None, *,
@@ -57,7 +46,7 @@ def aa_snake_conv1d_plain(x, a, inv_b, weight, bias=None, *,
     k = weight.shape[-1]
     ca = (k - 1) * dilation // 2
     t = x.shape[-1]
-    tp = fused_taps()
+    tp = polyphase_taps()
     eu, ou, ze, zo = tp[0:6], tp[6:12], tp[12:18], tp[18:24]
     nz = t + 2 * ca                       # act rows [-ca, T+ca)
     nph = nz + 6                          # phase rows [-ca-3, T+ca+3)
@@ -138,7 +127,7 @@ def aa_snake_conv1d_cuda(x, a, inv_b, weight, bias=None, *,
                              "large")
         wr = torch.empty((k, o, cp), dtype=x.dtype, device=x.device)
     y = torch.empty((b, o, t), dtype=out_dtype, device=x.device)
-    taps = fused_taps()
+    taps = polyphase_taps()
     fn = kernels.function("act_conv", "ditto_act_conv", _ARGTYPES)
     err = fn(x.data_ptr(), a.data_ptr(), inv_b.data_ptr(), weight.data_ptr(),
              None if wr is None else wr.data_ptr(),
@@ -162,8 +151,7 @@ def _too_short(t: int, ca: int, align: int) -> bool:
 def _unfused(x, alpha, beta, weight, bias, dilation, logscale,
              compute_dtype):
     ca = (weight.shape[-1] - 1) * dilation // 2
-    z = polyphase_anti_aliased_activation(
-        x, lambda v: snake_beta(v, alpha, beta, logscale=logscale))
+    z = polyphase_snake(x, alpha, beta, logscale=logscale)
     return conv1d(F.pad(z, (ca, ca)), weight, bias, dilation=dilation,
                   compute_dtype=compute_dtype)
 

@@ -8,15 +8,17 @@ and ``ops/fir_gemm.py``).
 kaiser-sinc up, activation, 2x anti-aliased down) without the 2x-rate
 signal: two 6-tap upsample phases, the activation on each, two 6-tap
 decimation phases, with BigVGAN's replicate edges. It runs in fp32 and
-returns x's type; the vocoder uses it for the activations outside the
-fused act->conv widths and for act_post. ``snake_beta`` takes ``torch.sin``
-unless asked for ``sin2`` (``fast``), as the JAX one takes ``jnp.sin``
-unless ``fast``; the JAX vocoder sets ``fast`` for the standalone
-activations of its default ``aa_impl="fused_conv"`` under
-``layout="nlc"``. The fused kernels C and D, like the Pallas kernels they
-replace, always take ``sin2``: sin^2 by a pi-periodic range reduction and
-an odd polynomial (the JAX ``ops/fastmath.py``), branch-free and a
-fraction of ``sinf``'s instructions on the card.
+returns x's type; the vocoder's activations outside the fused act->conv
+widths and act_post take it with ``snake_beta`` through
+``ops.snake_fused.polyphase_snake`` (kernel D's polyphase mode on a CUDA
+tensor). ``snake_beta`` takes ``torch.sin`` unless asked for ``sin2``
+(``fast``), as the JAX one takes ``jnp.sin`` unless ``fast``; the JAX
+vocoder sets ``fast`` for the standalone activations of its default
+``aa_impl="fused_conv"`` under ``layout="nlc"``. Kernel C and kernel D's
+Pallas modes, like the Pallas kernels they replace, always take ``sin2``:
+sin^2 by a pi-periodic range reduction and an odd polynomial (the JAX
+``ops/fastmath.py``), branch-free and a fraction of ``sinf``'s
+instructions on the card.
 
 The vocoder's other ``aa_impl`` settings take the other two forms:
 ``anti_aliased_activation`` (composed: 2x-rate upsample, activation, 2x
@@ -75,19 +77,24 @@ def snake_coeffs(alpha, beta=None, *, logscale: bool = True):
     return a, 1.0 / (b + _EPS)
 
 
+def snake_of(xf, a, inv_b, *, fast: bool):
+    """xf + inv_b sin^2(a xf) of an fp32 xf [B, C, T] with ``snake_coeffs``'
+    (a, inv_b) [C]; sin^2 by ``sin2`` under ``fast``, else ``torch.sin``."""
+    if fast:
+        s2 = sin2(a[:, None] * xf)
+    else:
+        s = torch.sin(a[:, None] * xf)
+        s2 = s * s
+    return xf + inv_b[:, None] * s2
+
+
 def snake_beta(x, alpha, beta=None, *, logscale: bool = True,
                fast: bool = False):
     """x [B, C, T]; alpha, beta [C] (beta None: plain Snake). fp32 math,
     result in x's type. ``fast`` takes ``sin2`` for sin^2 (the JAX
     ``snake_beta(fast=True)``), else ``torch.sin``."""
     a, inv_b = snake_coeffs(alpha, beta, logscale=logscale)
-    xf = x.float()
-    if fast:
-        s2 = sin2(a[:, None] * xf)
-    else:
-        s = torch.sin(a[:, None] * xf)
-        s2 = s * s
-    return (xf + inv_b[:, None] * s2).to(x.dtype)
+    return snake_of(x.float(), a, inv_b, fast=fast).to(x.dtype)
 
 
 def polyphase_anti_aliased_activation(x, act_fn):

@@ -22,6 +22,17 @@ A CPU tensor takes ``fused_snake_plain``; a CUDA tensor launches kernel D
 (``csrc/snake.cu``) or raises (also, having no backward, on an input that
 requires grad under grad mode: ``kernels.forbid_grad``). Both layouts go
 through one kernel on a [B, C, T] view with the tensor's own strides.
+
+  polyphase_snake(x [B, C, T], alpha, beta, fast=...)   the JAX
+      ``polyphase_anti_aliased_activation(x, snake_beta(fast=...))``
+
+is the same activation with the polyphase form's edges (the 2x-rate
+signal replicate-padded) and its arithmetic: fp32 inside, sin^2 by
+``sin2`` under ``fast``, else by ``torch.sin``. A CPU tensor takes
+``polyphase_snake_plain`` (``ops.snake.polyphase_anti_aliased_activation``
+itself); a CUDA tensor launches kernel D in its polyphase mode, which sums
+in the plain form's order (so differs from it only where the card fuses a
+multiply and an add), or raises.
 """
 
 from __future__ import annotations
@@ -34,9 +45,14 @@ import torch
 import torch.nn.functional as F
 
 from .. import kernels
-from .snake import aa_filter, sin2, snake_coeffs
+from .snake import (aa_filter, polyphase_anti_aliased_activation, sin2,
+                    snake_coeffs, snake_of)
 
 _P = 8   # replicate-pad samples per side (the Pallas kernels' halo)
+
+
+# ditto_snake's modes (csrc/snake.cu)
+_PALLAS_F32_TAPS, _PALLAS_X_TAPS, _POLY, _POLY_SINF = range(4)
 
 
 @functools.lru_cache(maxsize=1)
@@ -45,6 +61,16 @@ def phase_taps() -> np.ndarray:
     2h[2m] (-> o); decimation h[2m+1] (on s(e)), h[2m] (on s(o))."""
     h = aa_filter()
     return np.concatenate([2.0 * h[1::2], 2.0 * h[0::2], h[1::2],
+                           h[0::2]]).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=1)
+def polyphase_taps() -> np.ndarray:
+    """[24] fp32 in ``polyphase_anti_aliased_activation``'s order: upsample
+    2h[2r] (-> e), 2h[2r+1] (-> o); decimation h[2r+1] (on s(e)), h[2r]
+    (on s(o))."""
+    h = aa_filter()
+    return np.concatenate([2.0 * h[0::2], 2.0 * h[1::2], h[1::2],
                            h[0::2]]).astype(np.float32)
 
 
@@ -94,10 +120,7 @@ _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_float)] \
     + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
-def fused_snake_cuda(x, a, inv_b, *, up_in_x_dtype: bool):
-    """Kernel D; the operands of ``fused_snake_plain`` on one CUDA device.
-    x may have any strides; y has x's strides when x is dense (a [B, T, C]
-    tensor seen as [B, C, T] stays channels-minor)."""
+def _snake_cuda(x, a, inv_b, mode: int, taps: np.ndarray):
     kernels.forbid_grad("snake", x, a, inv_b)
     kernels.require_cuda("snake", x, a, inv_b)
     if x.dtype not in kernels.DTYPE_CODES or x.dim() != 3:
@@ -115,15 +138,52 @@ def fused_snake_cuda(x, a, inv_b, *, up_in_x_dtype: bool):
     xs = (ctypes.c_longlong * 3)(*x.stride())
     ys = (ctypes.c_longlong * 3)(*y.stride())
     time_minor = abs(x.stride(2)) <= abs(x.stride(1))
-    taps = phase_taps()
     fn = kernels.function("snake", "ditto_snake", _ARGTYPES)
     err = fn(x.data_ptr(), a.data_ptr(), inv_b.data_ptr(), y.data_ptr(),
              taps.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), b, c, t,
-             xs, ys, int(up_in_x_dtype), int(time_minor),
-             kernels.DTYPE_CODES[x.dtype], kernels.stream_ptr(x))
+             xs, ys, mode, int(time_minor), kernels.DTYPE_CODES[x.dtype],
+             kernels.stream_ptr(x))
     kernels.check(err, "snake")
     kernels.launches["snake"] += 1
     return y
+
+
+def fused_snake_cuda(x, a, inv_b, *, up_in_x_dtype: bool):
+    """Kernel D; the operands of ``fused_snake_plain`` on one CUDA device.
+    x may have any strides; y has x's strides when x is dense (a [B, T, C]
+    tensor seen as [B, C, T] stays channels-minor)."""
+    return _snake_cuda(x, a, inv_b,
+                       _PALLAS_X_TAPS if up_in_x_dtype else _PALLAS_F32_TAPS,
+                       phase_taps())
+
+
+def polyphase_snake_plain(x, a, inv_b, *, fast: bool):
+    """x [B, C, T], fp32 or bf16; a, inv_b [C] fp32 (see ``snake_coeffs``).
+    ``polyphase_anti_aliased_activation`` with ``snake_beta``'s arithmetic
+    (``ops.snake.snake_of``); [B, C, T] in x's type."""
+    return polyphase_anti_aliased_activation(
+        x, lambda v: snake_of(v, a, inv_b, fast=fast))
+
+
+def polyphase_snake_cuda(x, a, inv_b, *, fast: bool):
+    """Kernel D in its polyphase mode; the operands of
+    ``polyphase_snake_plain`` on one CUDA device, x of any strides (sin^2
+    by ``sin2f`` under ``fast``, else by ``sinf``)."""
+    return _snake_cuda(x, a, inv_b, _POLY if fast else _POLY_SINF,
+                       polyphase_taps())
+
+
+def polyphase_snake(x, alpha, beta=None, *, logscale: bool = True,
+                    fast: bool = False):
+    """x [B, C, T]; alpha / beta [C] (beta None: plain Snake).
+    ``polyphase_anti_aliased_activation(x, snake_beta(..., fast=fast))``,
+    [B, C, T] in x's type: on the CPU the plain version, on a CUDA tensor
+    one launch of kernel D."""
+    a, inv_b = snake_coeffs(alpha, beta, logscale=logscale)
+    if x.device.type == "cpu":
+        return polyphase_snake_plain(x, a, inv_b, fast=fast)
+    return polyphase_snake_cuda(x, a.contiguous(), inv_b.contiguous(),
+                                fast=fast)
 
 
 def _fused(xv, alpha, beta, logscale, up_in_x_dtype):

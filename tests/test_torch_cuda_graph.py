@@ -213,7 +213,7 @@ def test_under_grad_the_step_stays_eager(dev):
 def test_served_request_equals_itself_with_the_step_eager(dev, monkeypatch):
     """A default 10 s / B=1 request through the serving entry point, graphed
     and with ``engages`` false, bit for bit, with the default path's exact
-    launches (A 1200, B 90, C 54, D 0) either way."""
+    launches (A 1200, B 90, C 54, D 55) either way."""
     cfg = serving_config()
     params = tparams.init_generator_params(cfg, 0).to(dev)
     rng = np.random.default_rng(0)
@@ -222,7 +222,7 @@ def test_served_request_equals_itself_with_the_step_eager(dev, monkeypatch):
     text = rng.integers(0, 50257, (1, 64))
     serve = gen_mod.build_synthesize_pipelined(cfg)
     want_launches = {"attention": 1200, "conv1d": 90, "act_conv": 54,
-                     "snake": 0}
+                     "snake": 55}
 
     def request():
         kernels.reset_launches()

@@ -19,6 +19,15 @@ on either side of those tiles and runs. Kernel A's gradient (its
 ``autograd.Function``: the kernel forward, the stock-op backward) is held
 against autograd through the plain version at the same tile edges; B, C
 and D, which have no backward, refuse an input that requires grad.
+
+Kernel D's polyphase mode is held to
+``polyphase_anti_aliased_activation`` with ``snake_beta`` run as stock
+ops on the card, which it follows op for op (only the card's fused
+multiply-adds differ): fp32 within 1e-6 of max |plain|; bf16 within one
+bf16 ulp of each value, plus that fp32 allowance for the values so near
+zero that their ulp is smaller than it. The first and last 8 samples of
+each row, where the polyphase edges differ from the Pallas ones, are
+checked apart.
 """
 
 import pytest
@@ -31,8 +40,12 @@ from ditto_tts_tpu_torch.ops.attention import (attention, attention_cuda,
                                               attention_plain)
 from ditto_tts_tpu_torch.ops.conv import (conv1d, conv1d_cuda,
                                           conv1d_ncl_batched, conv1d_plain)
+from ditto_tts_tpu_torch.ops.snake import (polyphase_anti_aliased_activation,
+                                          snake_beta, snake_coeffs)
 from ditto_tts_tpu_torch.ops.snake_fused import (fused_snake_cuda,
-                                                 fused_snake_plain)
+                                                 fused_snake_plain,
+                                                 polyphase_snake,
+                                                 polyphase_snake_cuda)
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 DTYPES = [torch.float32, torch.bfloat16]
@@ -280,6 +293,100 @@ def test_snake_kernel(gen, dtype, up_x, b, c, t, view):
     _check(got, fused_snake_plain(x, a, inv_b, up_in_x_dtype=up_x), dtype)
 
 
+def _poly_plain(x, alpha, beta, fast):
+    return polyphase_anti_aliased_activation(
+        x, lambda v: snake_beta(v, alpha, beta, fast=fast))
+
+
+def _check_poly(got, want, dtype):
+    """``polyphase_snake_cuda`` against the stock-op polyphase form, over
+    the row's first 8 samples, its last 8 and the whole."""
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    g, w = got.float(), want.float()
+    slack = 1e-6 * w.abs().max().item()
+    if dtype == torch.bfloat16:
+        _, e = torch.frexp(w)
+        ulp = torch.where(w == 0, torch.zeros_like(w),
+                          torch.ldexp(torch.ones_like(w), e - 8))
+    else:
+        ulp = torch.zeros_like(w)
+    for part, sl in (("first 8", slice(0, 8)), ("last 8", slice(-8, None)),
+                     ("all", slice(None))):
+        err = (g[..., sl] - w[..., sl]).abs()
+        bad = err > ulp[..., sl] + slack
+        assert not bad.any(), (part, err.max().item(),
+                               int(bad.sum().item()))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("fast", [True, False])
+@pytest.mark.parametrize("with_beta", [True, False])
+@pytest.mark.parametrize("c", [1, 24, 48, 768])
+@pytest.mark.parametrize("t", [1, 2, 3, 5, 15, 16, 17, 3748])
+def test_polyphase_snake_kernel(gen, dtype, fast, with_beta, c, t):
+    """Kernel D's polyphase mode: T shorter than the edges' reach (1-5),
+    one 16-sample run and either side of it, the 768-wide stage's 3748,
+    on a [B, C, T] tensor and on one an odd number of elements into its
+    storage; one launch each."""
+    b = 2
+    flat = _rn(gen, 1 + b * c * t, dtype=dtype, scale=2.0)
+    alpha = _rn(gen, c, scale=0.3)
+    beta = _rn(gen, c, scale=0.3) if with_beta else None
+    a, inv_b = snake_coeffs(alpha, beta)
+    for x in (flat[:-1].view(b, c, t), flat[1:].view(b, c, t)):
+        before = kernels.launches["snake"]
+        got = polyphase_snake_cuda(x, a, inv_b, fast=fast)
+        assert kernels.launches["snake"] == before + 1
+        _check_poly(got, _poly_plain(x, alpha, beta, fast), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("fast", [True, False])
+@pytest.mark.parametrize("c,t", [(48, 119936), (24, 239872)])
+def test_polyphase_snake_kernel_path_lengths(gen, dtype, fast, c, t):
+    """The 48- and 24-wide stages' lengths in a 10 s request, also at an
+    odd storage offset."""
+    flat = _rn(gen, 1 + c * t, dtype=dtype, scale=2.0)
+    alpha, beta = _rn(gen, c, scale=0.3), _rn(gen, c, scale=0.3)
+    a, inv_b = snake_coeffs(alpha, beta)
+    for x in (flat[:-1].view(1, c, t), flat[1:].view(1, c, t)):
+        _check_poly(polyphase_snake_cuda(x, a, inv_b, fast=fast),
+                    _poly_plain(x, alpha, beta, fast), dtype)
+
+
+@pytest.mark.parametrize("view", ["btc", "strided"])
+def test_polyphase_snake_kernel_views(gen, view):
+    """A [B, T, C] tensor seen as [B, C, T] (channels-minor runs) and every
+    other sample of a longer signal."""
+    b, c, t = 2, 40, 300
+    if view == "btc":
+        x = _rn(gen, b, t, c, dtype=torch.bfloat16, scale=2.0).transpose(1, 2)
+    else:
+        x = _rn(gen, b, c, 2 * t, dtype=torch.bfloat16, scale=2.0)[..., ::2]
+    alpha, beta = _rn(gen, c, scale=0.3), _rn(gen, c, scale=0.3)
+    a, inv_b = snake_coeffs(alpha, beta)
+    _check_poly(polyphase_snake_cuda(x, a, inv_b, fast=True),
+                _poly_plain(x, alpha, beta, True), torch.bfloat16)
+
+
+def test_polyphase_snake_launches_on_the_card(gen):
+    """The entry launches kernel D once on a CUDA tensor, with its
+    coefficients from ``snake_coeffs`` (linear scale and plain Snake
+    included)."""
+    x = _rn(gen, 2, 24, 1000, dtype=torch.bfloat16, scale=2.0)
+    alpha = _rn(gen, 24, scale=0.3).abs() + 0.5
+    for beta, logscale in ((None, True), (alpha + 0.1, False)):
+        before = kernels.launches["snake"]
+        got = polyphase_snake(x, alpha, beta, logscale=logscale, fast=True)
+        assert kernels.launches["snake"] == before + 1
+        a, inv_b = snake_coeffs(alpha, beta, logscale=logscale)
+        assert torch.equal(got, polyphase_snake_cuda(x, a, inv_b, fast=True))
+        _check_poly(got, polyphase_anti_aliased_activation(
+            x, lambda v: snake_beta(v, alpha, beta, logscale=logscale,
+                                    fast=True)), torch.bfloat16)
+
+
 @pytest.mark.parametrize("b,c,t,o,k,dil", [(8, 32, 3000, 32, 3, 1),
                                            (1, 16, 500, 16, 3, 2)])
 def test_conv1d_ncl_batched_launches_kernel_b(gen, b, c, t, o, k, dil):
@@ -376,7 +483,8 @@ def test_kernels_without_backward_refuse_grad(gen):
                  lambda: conv1d_cuda(x.detach(), w.requires_grad_()),
                  lambda: aa_snake_conv1d_cuda(x, ones, ones, w.detach()),
                  lambda: fused_snake_cuda(x, ones, ones,
-                                          up_in_x_dtype=False)):
+                                          up_in_x_dtype=False),
+                 lambda: polyphase_snake_cuda(x, ones, ones, fast=True)):
         with pytest.raises(RuntimeError, match="no backward"):
             call()
     assert kernels.launches == before

@@ -3,8 +3,8 @@ a multiple of 64) against the plain attention; F5's guided step captured
 as one CUDA graph (``infer/step_graph.py``) equal to the eager step bit for
 bit at the published widths (22 x 1024, B = 1, 2 x 1 rows); an F5 request
 at the published widths counting one A launch a block a step and its
-vocoder's C launches; and DiTTo's served request keeping its launches (A
-1200, B 90, C 54, D 0) beside the F5 chain. Every test skips without a
+vocoder's C and D launches; and DiTTo's served request keeping its
+launches (A 1200, B 90, C 54, D 55) beside the F5 chain. Every test skips without a
 CUDA card (the ``dev`` fixture decides, at run time). On the card, where
 JAX is absent and tests/conftest.py cannot load:
 
@@ -114,6 +114,7 @@ def test_f5_request_launches_kernel_a_once_a_block_a_step(dev):
         torch.cuda.synchronize()
         assert kernels.launches["attention"] == 22 * 4
         assert kernels.launches["act_conv"] == 54
+        assert kernels.launches["snake"] == 55
     assert outs[0].shape == (1, (S - 937) * 256)
     assert torch.equal(outs[0], outs[1])
 
@@ -130,4 +131,4 @@ def test_dittos_served_request_keeps_its_launches(dev):
           torch.Generator(device=dev).manual_seed(9))
     torch.cuda.synchronize()
     assert kernels.launches == {"attention": 1200, "conv1d": 90,
-                                "act_conv": 54, "snake": 0}
+                                "act_conv": 54, "snake": 55}

@@ -95,6 +95,21 @@ def _record_fast(monkeypatch, module):
     return calls
 
 
+def _record_port_fast(monkeypatch):
+    """The port's flags in JAX's sequence: its polyphase activations go
+    through ``polyphase_snake`` (kernel D on the card), where JAX's
+    polyphase form calls ``snake_beta`` on each of its two phases."""
+    calls = _record_fast(monkeypatch, tvoc)
+    orig = tvoc.polyphase_snake
+
+    def rec(*a, fast=False, **kw):
+        calls.extend([bool(fast)] * 2)
+        return orig(*a, fast=fast, **kw)
+
+    monkeypatch.setattr(tvoc, "polyphase_snake", rec)
+    return calls
+
+
 @pytest.mark.parametrize("init_ch,layout,conv_impl,aa_impl", [
     (96, "nlc", "pallas", "fused_conv"),     # NCL-hybrid stages, act_post
     (96, "nlc", "gemm", "fused_conv"),       # NLC stages, NLC act_post
@@ -114,7 +129,7 @@ def test_vocoder_sets_fast_where_jax_does(monkeypatch, init_ch, layout,
     mel = np.random.default_rng(2).standard_normal((1, 5, 24)).astype(
         np.float32)
     jcalls = _record_fast(monkeypatch, jvoc)
-    tcalls = _record_fast(monkeypatch, tvoc)
+    tcalls = _record_port_fast(monkeypatch)
     # a fresh function object, so the jit traces (and records) anew
     jax.jit(lambda p, m: jvoc.bigvgan_forward(p, cfg, m))(
         tree_map(jx, arrays), jx(mel))

@@ -21,6 +21,7 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+from ditto_tts_tpu.ops import snake as jsnake
 from ditto_tts_tpu.ops.fastmath import sin2 as jsin2
 from ditto_tts_tpu.ops.snake_pallas import fused_snake_pallas
 from ditto_tts_tpu.ops.snake_pallas_nlc import fused_snake_nlc as jnlc
@@ -28,7 +29,8 @@ from ditto_tts_tpu.ops.snake_pallas_nlc import fused_snake_nlc as jnlc
 from ditto_tts_tpu_torch.ops.snake import sin2, snake_coeffs
 from ditto_tts_tpu_torch.ops.snake_fused import (fused_snake,
                                                  fused_snake_nlc,
-                                                 fused_snake_plain)
+                                                 fused_snake_plain,
+                                                 polyphase_snake)
 
 from _torch_port_util import assert_close, jx, np_of, tt
 
@@ -127,3 +129,42 @@ def test_sin2_matches_the_jax_fastmath_polynomial():
     want = np.asarray(jsin2(jnp.asarray(x)))
     assert np.abs(got - want).max() <= 1e-6
     assert np.abs(got - np.sin(x.astype(np.float64)) ** 2).max() <= 1e-6
+
+
+def _jax_polyphase(x, alpha, beta, fast):
+    """The JAX polyphase form with the JAX SnakeBeta (plain Snake: beta =
+    alpha, as ``snake_coeffs`` takes it), on fp32 x."""
+    bj = jx(alpha if beta is None else beta)
+    return np_of(jsnake.polyphase_anti_aliased_activation(
+        jx(x), lambda v: jsnake.snake_beta(v, jx(alpha), bj, fast=fast)))
+
+
+@pytest.mark.parametrize("fast", [True, False])
+@pytest.mark.parametrize("with_beta", [True, False])
+@pytest.mark.parametrize("t", [1, 2, 3, 7, 40])
+def test_polyphase_snake_on_cpu_is_the_jax_polyphase_form(t, with_beta,
+                                                          fast):
+    """``polyphase_snake`` on a CPU tensor (the plain form kernel D's
+    polyphase mode is held to on the card) against the JAX
+    ``polyphase_anti_aliased_activation`` with ``snake_beta(fast=...)``,
+    T shorter than the edges' reach included."""
+    x, alpha, beta = _case(2, 3, t, seed=4)
+    beta = beta if with_beta else None
+    got = polyphase_snake(tt(x), tt(alpha), None if beta is None
+                          else tt(beta), fast=fast)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, 3, t)
+    assert_close(got, _jax_polyphase(x, alpha, beta, fast), rtol=1e-5,
+                 atol=1e-5)
+
+
+@pytest.mark.parametrize("fast", [True, False])
+def test_polyphase_snake_on_cpu_in_bf16(fast):
+    """A bf16 x runs in fp32 and returns bf16: the JAX form on the same
+    values, rounded once."""
+    x, alpha, beta = _case(2, 6, 300)
+    xb = tt(x).bfloat16()
+    got = polyphase_snake(xb, tt(alpha), tt(beta), fast=fast)
+    assert got.dtype == torch.bfloat16
+    want = tt(_jax_polyphase(np_of(xb), alpha, beta, fast)).bfloat16()
+    _bf16_close(got, want)
+

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 import jax
+import torch
 
 from ditto_tts_tpu.core.config import VocoderConfig
 from ditto_tts_tpu.models import vocoder as jvoc
@@ -115,3 +116,42 @@ def test_vocoder_dispatch_cell(tpu_dispatch, init_ch, layout, conv_impl,
     got = _port(cfg, init_ch)
     assert tuple(got.shape) == want.shape
     assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_default_vocoder_sends_55_activations_to_polyphase_snake(
+        monkeypatch):
+    """At BigVGAN's published widths under the default setting
+    (``fused_conv``, ``nlc``, ``pallas``), the standalone activations that
+    kernel D runs on the card: 18 at 768 channels, 18 at 48, 18 at 24 and
+    act_post, each with ``sin2``; none at 96-384, where kernel C's pairs
+    run (6 mel frames keep every pair above C's short-sequence gate)."""
+    from ditto_tts_tpu_torch.config import VocoderConfig as TVocoderConfig
+    from ditto_tts_tpu_torch.ops import act_conv as tac
+    cfg = TVocoderConfig()
+    assert (cfg.aa_impl, cfg.layout, cfg.conv_impl) == (
+        "fused_conv", "nlc", "pallas")
+    calls, unfused = [], []
+
+    def logged(into, fn):
+        def call(x, alpha, beta=None, *, logscale=True, fast=False):
+            into.append((x.shape[1], fast))
+            return fn(x, alpha, beta, logscale=logscale, fast=fast)
+        return call
+
+    monkeypatch.setattr(tvoc, "polyphase_snake",
+                        logged(calls, tvoc.polyphase_snake))
+    monkeypatch.setattr(tac, "polyphase_snake",
+                        logged(unfused, tac.polyphase_snake))
+    params = tree_map(tt, fill_spec(_vocoder_spec(cfg), 0))
+    mel = tt(np.random.default_rng(0).standard_normal(
+        (1, cfg.num_mels, 6)).astype(np.float32))
+    with torch.no_grad():
+        wav = tvoc.bigvgan_forward(params, cfg, mel)
+    assert tuple(wav.shape) == (1, 1, 6 * 256)
+    assert unfused == []
+    widths = [c for c, _ in calls]
+    assert len(calls) == 55 and all(fast for _, fast in calls)
+    assert {c: widths.count(c) for c in set(widths)} == {768: 18, 48: 18,
+                                                         24: 19}
+    assert widths[-1] == 24   # act_post
+
