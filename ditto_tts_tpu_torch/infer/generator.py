@@ -46,6 +46,7 @@ functions share. The F5 request is ``request`` over ``mel``,
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -144,6 +145,27 @@ def _schedule(cfg: PipelineConfig, num_steps: Optional[int]):
             respaced_timesteps(cfg.dit.diffusion_steps, steps))
 
 
+@contextlib.contextmanager
+def _sampling(x, steps: int):
+    """The ``sampler`` span of a sampler starting from ``x`` [B, N, ...];
+    yields ``graph(model_fn, t0, key)``. Where ``step_graph.engages(x)``,
+    ``graph`` captures ``model_fn`` under ``sampler.capture`` (``t0()``
+    makes the first step's t; ``key`` as ``step_graph.capture`` takes it)
+    and returns the replaying ``model_fn``; elsewhere it returns
+    ``model_fn`` itself."""
+    graphed = step_graph.engages(x)
+
+    def graph(model_fn, t0, key):
+        if not graphed:
+            return model_fn
+        with span("sampler.capture"):
+            return step_graph.capture(model_fn, x, t0(), key)
+
+    with span("sampler", batch=x.shape[0], frames=x.shape[1], steps=steps,
+              graph="captured" if graphed else "eager"):
+        yield graph
+
+
 def _sample(params, cfg: PipelineConfig, schedule, taus, x_init, text_emb,
             *, kind: str = "ddpm", generator=None, noise_seq=None,
             clip: bool = True):
@@ -152,9 +174,7 @@ def _sample(params, cfg: PipelineConfig, schedule, taus, x_init, text_emb,
     clip). Where ``step_graph.engages`` (a CUDA x, grad mode off), the DiT
     forward of a step is captured once, after ``prepare``, and replayed
     for every step; the updates and the draws stay eager, in their order."""
-    graphed = step_graph.engages(x_init)
-    with span("sampler", batch=x_init.shape[0], frames=x_init.shape[1],
-              steps=len(taus), graph="captured" if graphed else "eager"):
+    with _sampling(x_init, len(taus)) as graph:
         prep = dit_mod.prepare(params.dit, cfg.dit, text_emb,
                                x_init.shape[1])
 
@@ -162,14 +182,11 @@ def _sample(params, cfg: PipelineConfig, schedule, taus, x_init, text_emb,
             return dit_mod.ditto_forward(params.dit, cfg.dit, x, text_emb, t,
                                          prepared=prep)
 
-        if graphed:
-            with span("sampler.capture"):
-                t0 = torch.full((x_init.shape[0],), int(taus[0]),
-                                dtype=torch.int64, device=x_init.device)
-                model_fn = step_graph.capture(
-                    model_fn, x_init, t0,
-                    (cfg.dit, tuple(text_emb.shape), text_emb.dtype))
-
+        model_fn = graph(
+            model_fn, lambda: torch.full((x_init.shape[0],), int(taus[0]),
+                                         dtype=torch.int64,
+                                         device=x_init.device),
+            (cfg.dit, tuple(text_emb.shape), text_emb.dtype))
         common = dict(noise_seq=noise_seq, generator=generator,
                       clip_denoised=cfg.sampler.clip_denoised if clip
                       else None, prediction_type=cfg.dit.prediction_type)
@@ -508,21 +525,16 @@ def _f5_sample(params, cfg: F5PipelineConfig, times, cond, text2,
     n = text2.shape[1]
     y0 = torch.randn((b, n, m), generator=generator, dtype=torch.float32,
                      device=cond.device)
-    graphed = step_graph.engages(y0)
-    with span("sampler", batch=b, frames=n, steps=times.shape[0] - 1,
-              graph="captured" if graphed else "eager"):
+    with _sampling(y0, times.shape[0] - 1) as graph:
         step_cond, prep = _f5_prepare(params, cfg, cond, text2)
 
         def model_fn(y, t):
             return f5_mod.velocity(params.dit, cfg.dit, y, t, prep,
                                    cfg.sampler.cfg_strength)
 
-        if graphed:
-            with span("sampler.capture"):
-                t0 = times[:1].to(y0.device).expand(b)
-                model_fn = step_graph.capture(
-                    model_fn, y0, t0, (cfg.dit, cfg.sampler.cfg_strength,
-                                       tuple(text2.shape)))
+        model_fn = graph(model_fn, lambda: times[:1].to(y0.device).expand(b),
+                         (cfg.dit, cfg.sampler.cfg_strength,
+                          tuple(text2.shape)))
         y = euler_sample(model_fn, y0, times)
         return torch.cat([step_cond[:, :p], y[:, p:]], dim=1)
 

@@ -188,16 +188,16 @@ def _stage_block(cfg: VocoderConfig, impl: str, kind: str, width: int, cdt):
     return lambda p, x, d: _amp_block(p, x, d, cdt, act)
 
 
-def bigvgan_forward(params, cfg: VocoderConfig, mel, *, fused: bool = False,
+def bigvgan_forward(params, cfg: VocoderConfig, mel, *,
                     aa_impl: Optional[str] = None,
                     layout: Optional[str] = None):
     """mel: [B, num_mels, T] -> waveform [B, 1, T * prod(rates)] (fp32).
 
     ``aa_impl`` (default ``cfg.aa_impl``) and ``layout`` (default
     ``cfg.layout``) choose the activations as the module docstring's table
-    says; ``fused=True`` is the legacy alias of ``aa_impl="fused_pallas"``.
+    says.
     """
-    impl = aa_impl or ("fused_pallas" if fused else cfg.aa_impl)
+    impl = aa_impl or cfg.aa_impl
     kind = layout or cfg.layout
     hybrid = kind == "nlc" and cfg.conv_impl == "pallas"
     cdt = getattr(torch, cfg.compute_dtype)

@@ -1,6 +1,16 @@
 """Shared helpers of the port's parity tests (tests/test_torch_*.py):
 numpy-seeded inputs go through the JAX function and its counterpart in
-``ditto_tts_tpu_torch``; weights cross with ``from_jax_params``."""
+``ditto_tts_tpu_torch``; weights cross with ``from_jax_params``.
+
+Importing this module sets the tests' CPU thread policy: one torch thread
+in this process, and ``OMP_NUM_THREADS=1`` for every process a test
+starts. The Tier-1 run's six xdist workers share the runner's cores, and
+torch's per-core OpenMP pools spin-wait against each other: on 8 cores,
+a file that takes 4.4 s alone took 715 s in the suite. xdist collects
+every test module in every worker, so each worker imports this module
+before its first test."""
+
+import os
 
 import numpy as np
 
@@ -22,6 +32,9 @@ from ditto_tts_tpu.text import gpt2 as gpt2_mod
 from ditto_tts_tpu_torch import config as tconfig
 from ditto_tts_tpu_torch.params import (FIELDS, SLP_FIELDS, fill_spec,
                                         from_jax_params, generator_spec)
+
+torch.set_num_threads(1)
+os.environ["OMP_NUM_THREADS"] = "1"
 
 # the tiny configs of tests/test_pipeline.py
 HID = 12

@@ -5,6 +5,7 @@ that raise without CUDA, kernel wrappers with no CPU fallback."""
 import ast
 import dataclasses
 import hashlib
+import os
 import pathlib
 
 import numpy as np
@@ -253,6 +254,14 @@ def test_import_check_covers_the_training_modules():
             "ditto_tts_tpu_torch/scripts/train_ditto.py",
             "ditto_tts_tpu_torch/utils/weights.py",
             "ditto_tts_tpu_torch/assets/__init__.py"} <= names
+
+
+def test_the_test_helper_sets_one_cpu_thread():
+    """tests/_torch_port_util.py's thread policy: one torch thread in the
+    test process (this file imports it), and ``OMP_NUM_THREADS=1`` for
+    every process it starts."""
+    assert torch.get_num_threads() == 1
+    assert os.environ["OMP_NUM_THREADS"] == "1"
 
 
 def test_gpt2_config_equals_jax():

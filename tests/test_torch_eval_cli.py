@@ -28,6 +28,8 @@ from ditto_tts_tpu_torch.models.vocoder import export_bigvgan_state_dict
 from ditto_tts_tpu_torch.params import fill_spec, generator_spec, tree_map
 from ditto_tts_tpu_torch.train.checkpoint import _flatten
 
+import _torch_port_util  # noqa: F401  (the one-thread policy)
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -43,15 +45,13 @@ def _write_wav(path, secs, freq=200.0):
 
 
 def _run(which, args, timeout=300):
-    # one intra-op thread: the same sums in every run (the bytes are
-    # compared across runs), and no oversubscribed spinning threads beside
-    # the other test workers
+    # one intra-op thread (inherited): the same sums in every run, whose
+    # bytes are compared across runs
     proc = subprocess.run(
         [sys.executable, "-m", f"ditto_tts_tpu_torch.scripts.{which}",
          "--device", "cpu"] + args,
         cwd=_REPO, timeout=timeout, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True,
-        env=dict(os.environ, OMP_NUM_THREADS="1"))
+        stderr=subprocess.STDOUT, text=True)
     assert proc.returncode == 0, proc.stdout[-4000:]
     return proc.stdout
 

@@ -17,7 +17,7 @@ elements by up to lr in a direction of its own, and they are held to
 and data parallelism averages two half-batch means: both reorder fp32
 sums.
 
-The workers run with ``OMP_NUM_THREADS=1``; the two groups take ~10 s.
+The workers inherit tests/_torch_port_util.py's one-thread policy.
 """
 
 import json
@@ -57,6 +57,7 @@ from ditto_tts_tpu_torch.parallel.train_setup import setup_mesh_training
 from ditto_tts_tpu_torch.train import checkpoint as tckpt
 
 import _torch_parallel_worker as W
+import _torch_port_util  # noqa: F401  (the one-thread policy)
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 TOL = 1e-5
@@ -98,11 +99,10 @@ def _free_port() -> int:
 
 def _launch(world, cases, outdir):
     port = str(_free_port())
-    env = dict(os.environ, OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
         [sys.executable, os.path.join(_HERE, "_torch_parallel_worker.py"),
          str(r), str(world), port, str(outdir), json.dumps(cases)],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
     outs = []
     try:

@@ -8,7 +8,7 @@ over the data axis, a mesh larger than the world), and the
 ``eval_discrimination`` twin at a few steps, which only has to run and
 write its report. The CLIs run at the JAX CLIs' widths (EnCodec 24 kHz,
 GPT2-small, ByT5-small; the DiT at one layer) with random weights; every
-process runs with ``OMP_NUM_THREADS=1``.
+process inherits tests/_torch_port_util.py's one-thread policy.
 """
 
 import json
@@ -27,8 +27,9 @@ from ditto_tts_tpu_torch.parallel.dryrun import dryrun_multichip
 from ditto_tts_tpu_torch.scripts import train_ditto
 from ditto_tts_tpu_torch.train.checkpoint import restore_into
 
+import _torch_port_util  # noqa: F401  (the one-thread policy)
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_ENV = dict(os.environ, OMP_NUM_THREADS="1")
 
 
 def _corpus(root, n):
@@ -65,7 +66,7 @@ def _run(which, nproc, args, timeout=400):
          str(nproc), "--master-addr", "localhost", "--master-port",
          str(_free_port()), "-m", f"ditto_tts_tpu_torch.scripts.train_{which}",
          "--device", "cpu", "--dist-backend", "gloo"] + args,
-        cwd=_REPO, env=_ENV, timeout=timeout, stdout=subprocess.PIPE,
+        cwd=_REPO, timeout=timeout, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
     assert proc.returncode == 0, proc.stdout[-4000:]
     return proc.stdout
@@ -137,8 +138,7 @@ def test_mesh_cli_refuses(tmp_path, monkeypatch, args, match):
                           "--dist-backend", "gloo"] + args)
 
 
-def test_dryrun_multichip_four_ranks(monkeypatch, capfd):
-    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+def test_dryrun_multichip_four_ranks(capfd):
     dryrun_multichip(4, "cpu")
     assert "[dryrun_multichip] mesh={'data': 2, 'model': 2} batch=4" in \
         capfd.readouterr().out
@@ -152,7 +152,7 @@ def test_eval_discrimination_runs_and_writes_its_report(tmp_path):
          "--train-steps", "2", "--asr-steps", "2", "--ecapa-steps", "2",
          "--seeds", "0", "--max-batches", "1", "--device", "cpu",
          "--workdir", str(tmp_path / "work"), "--out", str(out)],
-        cwd=_REPO, env=_ENV, timeout=600, stdout=subprocess.PIPE,
+        cwd=_REPO, timeout=600, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
     assert proc.returncode == 0, proc.stdout[-4000:]
     rep = json.loads(out.read_text())

@@ -19,6 +19,8 @@ from ditto_tts_tpu_torch.config import NACConfig
 from ditto_tts_tpu_torch.params import init_nac_train_state
 from ditto_tts_tpu_torch.train.checkpoint import save_checkpoint
 
+import _torch_port_util  # noqa: F401  (the one-thread policy)
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
