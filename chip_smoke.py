@@ -8,12 +8,12 @@ on one NVIDIA H100.
 
 Phases (any failure exits non-zero and prints no result line):
   1. device   the card's name and power limit (nvidia-smi), torch / CUDA
-  2. build    nvcc builds kernels A, B, C, D from ditto_tts_tpu_torch/csrc/
+  2. build    nvcc builds kernels A-E from ditto_tts_tpu_torch/csrc/
               (one nvcc per source, all at once); each kernel's registers
               and spills (ptxas) and tensor-core instructions (cuobjdump
               -sass, which the toolkit must have), which must be in every
               bf16 kernel of A, B and C (*_kernel_tc) and in none of their
-              fp32 kernels, the weight reorder, or D
+              fp32 kernels, the weight reorder, D or E
   3. kernels  each kernel against its plain PyTorch version at the paths'
               shapes, bf16 and fp32, with the stated tolerance (A at the
               DiT's four shapes; B at every bf16 shape class of the vocoder
@@ -22,7 +22,8 @@ Phases (any failure exits non-zero and prints no result line):
               residual epilogue at widths 48 / 24; D in its two Pallas
               modes, on [B, C, T] and [B, T, C], with a ragged T and
               T < 8, and in its polyphase mode, sin2 and sinf, at the
-              default path's 768-, 48- and 24-wide stages and at T of 1-17);
+              default path's 768-, 48- and 24-wide stages and at T of 1-17;
+              E's three modes at ditto-base's and ditto-ref's widths);
               kernel and library times (device ms of a replayed CUDA
               graph), the plain version's, and the bound
   4. serving  the full-width chain of bench.py (12-layer 768-wide DiT,
@@ -32,7 +33,7 @@ Phases (any failure exits non-zero and prints no result line):
               seed that must be bitwise equal) and the 20 s bucket at B=4;
               launches of every kernel, read over this phase, must be
               exactly those of the default path (per request A 1200, B 90,
-              C 54, D 55); the shapes of A's and B's calls in the untimed
+              C 54, D 55, E 3650); the shapes of A's and B's calls in the untimed
               warm-up request
   5. parity   full width, 1 s prompt, B=1, fp32 with TF32 off, all 50
               steps (respaced to 4 steps, the first step's beta rounds to
@@ -221,17 +222,20 @@ def nbytes(*tensors) -> int:
 # launches of each kernel per 10 s / B=4 request on each path; D: the
 # vocoder's standalone activations (the default path's 18 at each of 768,
 # 48 and 24 channels and act_post in the polyphase mode; fused_pallas's
-# 108 in the Pallas modes and act_post in the polyphase mode)
-DEFAULT_PATH = {"attention": 1200, "conv1d": 90, "act_conv": 54, "snake": 55}
+# 108 in the Pallas modes and act_post in the polyphase mode); E: the
+# DiT's glue, 6 a block and the first norm, 73 a step of 50
+DEFAULT_PATH = {"attention": 1200, "conv1d": 90, "act_conv": 54, "snake": 55,
+                "dit_glue": 50 * 73}
 FUSED_PALLAS_PATH = {"attention": 1200, "conv1d": 90 + 54, "act_conv": 0,
-                     "snake": 109}
+                     "snake": 109, "dit_glue": 50 * 73}
 # BigVGAN's last two stages under aa_impl="fused_ncl", one forward (D:
 # act_post)
-FUSED_NCL_PATH = {"attention": 0, "conv1d": 4, "act_conv": 36, "snake": 1}
+FUSED_NCL_PATH = {"attention": 0, "conv1d": 4, "act_conv": 36, "snake": 1,
+                  "dit_glue": 0}
 # launches of kernels A, C and D per F5 request at the published widths
 # (22 blocks x 32 guided steps; BigVGAN's act->conv pairs and standalone
 # activations); B's count is read from the phase's held request
-F5_PATH = {"attention": 22 * 32, "act_conv": 54, "snake": 55}
+F5_PATH = {"attention": 22 * 32, "act_conv": 54, "snake": 55, "dit_glue": 0}
 # matmul-softmax attention per SLP-chain request (no kernel: JAX computes
 # it outside Pallas): the decoder's self and cross attention over one
 # 1472-wide head, ByT5's biased attention in each of its 12 layers, and
@@ -729,6 +733,44 @@ def kernel_phase(torch, rec):
                                 55.0 * x.numel(), nbytes(x, got, a, inv_b),
                                 torch.float32)
     entries["snake"] = sites["polyphase C48"]
+
+    # ---- E: the DiT block's glue at ditto-base's widths (bf16, heads of
+    # 64) and ditto-ref's (fp32, one head of 768), B=4 x 750 rows ----
+    from ditto_tts_tpu_torch.ops import dit_glue as E
+    from ditto_tts_tpu_torch.ops.rope import rope_tables
+    b, s, h, ff = 4, 750, 768, 3072
+    for dt, nh in ((bf16, 12), (torch.float32, 1)):
+        dn = str(dt).split(".")[1]
+        y, res = rn(b, s, h, dtype=dt), rn(b, s, h, dtype=dt, scale=2.0)
+        bias = rn(h, dtype=dt, scale=0.5)
+        norm = {"weight": rn(h, scale=0.2).add(1.0).to(dt),
+                "bias": rn(h, dtype=dt, scale=0.2)}
+        got = E.add_norm_cuda(y, bias, res, norm)
+        want = E.add_norm_plain(y, bias, res, norm)
+        checks.compare("dit_glue", f"add_norm sum {dn} B{b} S{s} H{h}",
+                       got[0], want[0], dn)
+        err = checks.compare("dit_glue", f"add_norm norm {dn} B{b} S{s} "
+                             f"H{h}", got[1], want[1], dn)
+        if dt == bf16:
+            entries["dit_glue"] = timed(
+                f"bf16 B={b} S={s} H={h} add_norm (sum and norm)", err,
+                lambda: E.add_norm_cuda(y, bias, res, norm),
+                lambda: E.add_norm_plain(y, bias, res, norm),
+                10.0 * b * s * h, nbytes(y, res, *got, bias, *norm.values()),
+                dt)
+        qkv, qb = rn(b, s, 3 * h, dtype=dt, scale=2.0), rn(3 * h, dtype=dt)
+        cos, sin = rope_tables(s, h // nh, dtype=dt, device=dev)
+        for part, g, w in zip("qkv", E.qkv_rope_cuda(qkv, qb, nh, cos, sin),
+                              E.qkv_rope_plain(qkv, qb, nh, cos, sin)):
+            checks.compare("dit_glue", f"qkv_rope {part} {dn} B{b} S{s} "
+                           f"H{h} heads {nh}", g, w, dn)
+        a, gt = rn(b, s, ff, dtype=dt, scale=3.0), rn(b, s, ff, dtype=dt,
+                                                      scale=3.0)
+        fb, gb = rn(ff, dtype=dt, scale=0.5), rn(ff, dtype=dt, scale=0.5)
+        checks.compare("dit_glue", f"gelu_gate {dn} B{b} S{s} ff{ff}",
+                       E.gelu_gate_cuda(a, fb, gt, gb),
+                       E.gelu_gate_plain(a, fb, gt, gb), dn)
+        del y, res, got, want, qkv, a, gt
     if checks.bad:
         fail("kernel parity: " + "; ".join(checks.bad))
     for name, e in list(entries.items()) + list(sites.items()):
@@ -1483,7 +1525,7 @@ def train_step_launches(dcfg, codec_cfg, audio: bool, *, remat=True) -> dict:
     a = 2 * dcfg.num_layers * (2 if remat else 1)
     b = 2 + 3 * len(codec_cfg.ratios) * codec_cfg.num_residual_layers
     return {"attention": a, "conv1d": b if audio else 0, "act_conv": 0,
-            "snake": 0}
+            "snake": 0, "dit_glue": 0}
 
 
 def grad_check_a(torch, checks, label, shape_q, shape_k, causal, dtype, dev,
@@ -2020,8 +2062,9 @@ def corpus_phase(torch, np, params, params_cpu, byt5_gpu, card, rec):
     ncfg, scfg = NACConfig(), SLPConfig()
     enc_b = codec_b_launches(ccfg)
     nac_want = {"attention": 0, "conv1d": 2 * enc_b, "act_conv": 0,
-                "snake": 0}
-    slp_want = {"attention": 0, "conv1d": enc_b, "act_conv": 0, "snake": 0}
+                "snake": 0, "dit_glue": 0}
+    slp_want = {"attention": 0, "conv1d": enc_b, "act_conv": 0, "snake": 0,
+                "dit_glue": 0}
     rng = np.random.default_rng(11)
 
     def on(device, tree):
@@ -2507,7 +2550,8 @@ def eval_phase(torch, np, cfg, params_cpu, dev, card, rec):
             "attention": DEFAULT_PATH["attention"],
             "conv1d": 2 * DEFAULT_PATH["conv1d"] + EVAL_BATCH * round_trip,
             "act_conv": 2 * DEFAULT_PATH["act_conv"],
-            "snake": 2 * DEFAULT_PATH["snake"]}
+            "snake": 2 * DEFAULT_PATH["snake"],
+            "dit_glue": DEFAULT_PATH["dit_glue"]}
         per_decode = greedy_attention_calls(s2t_cfg, ev.ASR_MAX_LEN)
         want_plain = {"decoder": 0, "byt5": 0, "gpt2": 0,
                       "s2t": 2 * EVAL_BATCH * per_decode}
@@ -3213,14 +3257,16 @@ def main() -> None:
                 f"{st} B, spill loads {ld} B, HMMA/HGMMA in SASS {n_mma}")
     # A, B and C: the bf16 kernels (*_tc) run on the tensor cores, the fp32
     # ones (exact fp32, TF32 would break the fp32 tolerance) and the weight
-    # reorder do not; D (an elementwise filter) has none
+    # reorder do not; D (an elementwise filter) and E (the DiT's glue)
+    # have none
     for name in kernels.KERNELS:
         mma = rec["sass_mma"][name]
         if mma is None:
             fail(f"{name}: no cuobjdump beside nvcc, so the tensor-core "
                  "instructions of the bf16 kernels cannot be checked")
         tc = {fn: n for fn, n in mma.items() if "kernel_tc" in fn}
-        if (name == "snake") != (not tc) or not all(tc.values()) or any(
+        elementwise = name in ("snake", "dit_glue")
+        if elementwise != (not tc) or not all(tc.values()) or any(
                 n for fn, n in mma.items() if fn not in tc):
             fail(f"{name}: tensor-core instructions in the wrong kernels: "
                  f"{mma}")
@@ -3298,7 +3344,10 @@ def main() -> None:
         "snake": "ditto_tts_tpu/ops/snake_pallas.py:109 fused_snake_pallas "
                  "(#8) + ditto_tts_tpu/ops/snake_pallas_nlc.py:80 "
                  "fused_snake_nlc (#9) + the XLA-fused ops/snake.py:83 "
-                 "polyphase_anti_aliased_activation (no Pallas kernel)"}
+                 "polyphase_anti_aliased_activation (no Pallas kernel)",
+        "dit_glue": "no Pallas kernel: the XLA-fused elementwise ops of "
+                    "ditto_tts_tpu/models/dit.py dit_block (layer norms, "
+                    "biases, RoPE, residuals, the gated MLP's GELU)"}
     # each kernel's count from the default serving phase (5 requests)
     counted = launches
     line = {"kernels": [dict(

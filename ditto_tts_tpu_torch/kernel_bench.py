@@ -1,5 +1,5 @@
-"""Kernels A, B, C and D at every bf16 shape of the serving paths, on the
-card.
+"""Kernels A, B, C and D at every bf16 shape of the serving paths, and E
+at the DiT's shapes in bf16 and fp32, on the card.
 
     python -m ditto_tts_tpu_torch.kernel_bench [--json FILE]
 
@@ -324,8 +324,65 @@ def run_snake(torch, gen, compare=None):
     return rows
 
 
+# (label, dtype name, B, S, hidden, heads, ff): kernel E at the DiT's shapes
+# in the B=8 serving cells (ditto-base, bf16; ditto-ref, fp32, one head)
+GLUE_SHAPES = (
+    ("base", "bfloat16", 8, 750, 768, 12, 3072),
+    ("ref", "float32", 8, 750, 768, 1, 3072),
+)
+
+
+def run_dit_glue(torch, gen, compare=None):
+    """Rows for each mode of kernel E at GLUE_SHAPES, as ``run_conv``, each
+    with ``plain_ms``: the eager ops it replaces, also replayed from a CUDA
+    graph. Bound by bytes: each operand read once, each output written
+    once."""
+    from .ops import dit_glue as E
+    from .ops.rope import rope_tables
+    rows = []
+    for label, dn, b, s, h, nh, ff in GLUE_SHAPES:
+        dt = getattr(torch, dn)
+
+        def rn(*shape, scale=1.0):
+            return (scale * torch.randn(*shape, generator=gen,
+                                        device="cuda")).to(dt)
+
+        y, res, bias = rn(b, s, h), rn(b, s, h, scale=2.0), rn(h)
+        norm = {"weight": (1.0 + 0.2 * torch.randn(
+            h, generator=gen, device="cuda")).to(dt), "bias": rn(h)}
+        qkv, qb = rn(b, s, 3 * h, scale=2.0), rn(3 * h)
+        cos, sin = rope_tables(s, h // nh, dtype=dt, device="cuda")
+        a, g, ba, bg = rn(b, s, ff), rn(b, s, ff), rn(ff), rn(ff)
+        modes = (
+            ("add_norm", lambda: E.add_norm_cuda(y, bias, res, norm),
+             lambda: E.add_norm_plain(y, bias, res, norm),
+             (y, res, bias, *norm.values()), 2 * y.numel()),
+            ("qkv_rope", lambda: E.qkv_rope_cuda(qkv, qb, nh, cos, sin),
+             lambda: E.qkv_rope_plain(qkv, qb, nh, cos, sin),
+             (qkv, qb, cos, sin), qkv.numel()),
+            ("bias_heads", lambda: E.bias_heads_cuda(y, bias, nh),
+             lambda: E.bias_heads_plain(y, bias, nh), (y, bias), y.numel()),
+            ("gelu_gate", lambda: E.gelu_gate_cuda(a, ba, g, bg),
+             lambda: E.gelu_gate_plain(a, ba, g, bg), (a, g, ba, bg),
+             a.numel()))
+        for mode, kernel, plain, ins, n_out in modes:
+            got, want = kernel(), plain()
+            got = got[-1] if isinstance(got, tuple) else got
+            want = want[-1] if isinstance(want, tuple) else want
+            if compare is not None:
+                compare(f"{mode} {label} B{b} S{s} H{h}", got, want)
+            err, rel = _rel_err(torch, got, want)
+            shape = f"{dn} B={b} S={s} H={h} heads={nh} ff={ff} ({mode})"
+            row = _row(torch, f"{mode} {label}", shape, kernel, None, 0.0,
+                       _nbytes(*ins) + n_out * y.element_size(), err, rel)
+            row["plain_ms"] = cuda_ms(torch, plain)
+            rows.append(row)
+    return rows
+
+
 RUNS = {"attention": run_attention, "conv1d": run_conv,
-        "act_conv": run_act_conv, "snake": run_snake}
+        "act_conv": run_act_conv, "snake": run_snake,
+        "dit_glue": run_dit_glue}
 
 
 def main(argv=None) -> int:
@@ -370,7 +427,8 @@ def main(argv=None) -> int:
         for r in out[kind]:
             lib = "-" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
             extra = "".join(f"  {k[:-3]} {r[k]:.4f}" for k in
-                            ("two_pass_ms", "conv_on_z_ms") if k in r)
+                            ("two_pass_ms", "conv_on_z_ms", "plain_ms")
+                            if k in r)
             print(f"{kind:9s} {r['label']:18s} {r['ms']:9.4f} ms (eager "
                   f"{r['call_ms']:.4f})  library {lib:>8s}{extra}  bound "
                   f"{r['bound_ms']:.4f} ({r['bound_by']})  "

@@ -27,7 +27,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / ".kernel_build"
-KERNELS = ("attention", "conv1d", "act_conv", "snake")
+KERNELS = ("attention", "conv1d", "act_conv", "snake", "dit_glue")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -19,7 +19,14 @@ the text once (``prepare_cross_kv``) and the RoPE tables are built once.
 The block stack is a Python loop (``scan_blocks`` changes nothing).
 Attention goes through ``ops.attention.attention`` (kernel A on the card,
 differentiable), heads wider than 128 through the matmul-softmax math, as
-JAX dispatches them; the dense layers are ``torch.matmul``.
+JAX dispatches them; the dense layers are ``torch.matmul``. Where
+``glue_fused`` holds (a CUDA x, no autograd graph to record, no model
+split, no dropout: the serving path on the card) the stack is
+``glue_blocks``: the same GEMMs and attention, with each output taken
+through one pass of kernel E (``ops/dit_glue.py``) in place of the
+elementwise ops between them; everywhere else it is ``dit_block``'s
+eager ops. The forward records which on the open ``sampler`` span (glue,
+"fused" or "eager").
 
 Training (``train/steps.py``) calls ``ditto_forward`` with a
 ``torch.Generator`` in place of JAX's ``dropout_key``:
@@ -65,9 +72,12 @@ from torch.utils import checkpoint as ckpt
 
 from ..config import DiTConfig
 from ..nn.core import dense, embed, layer_norm
+from ..ops import dit_glue
 from ..ops.attention import attention, attention_plain
 from ..ops.rope import apply_rope, rope_tables
+from ..params import tree_paths
 from ..parallel.tp import copy_to_model, row_parallel
+from ..utils.profiling import annotate
 
 
 def global_adaln(params, x, time_emb, text_emb):
@@ -81,11 +91,6 @@ def global_adaln(params, x, time_emb, text_emb):
     shift = t_shift + x_shift
     x = layer_norm({}, x)
     return x * scale[:, None, :] + shift[:, None, :]
-
-
-def _split_heads(x, num_heads: int):
-    b, s, h = x.shape
-    return x.reshape(b, s, num_heads, h // num_heads).transpose(1, 2)
 
 
 def _merge_heads(x):
@@ -133,7 +138,8 @@ def prepare_cross_kv(blocks, cfg: DiTConfig, text_emb, mesh=None):
             te = copy_to_model(te, mesh)
         k = dense({"weight": w[h:2 * h], "bias": b[h:2 * h]}, te)
         v = dense({"weight": w[2 * h:], "bias": b[2 * h:]}, te)
-        out.append((_split_heads(k, nh), _split_heads(v, nh)))
+        out.append((dit_glue.split_heads(k, nh),
+                    dit_glue.split_heads(v, nh)))
     return out
 
 
@@ -210,7 +216,7 @@ def dit_block(params, cfg: DiTConfig, x, rope_cs: Tuple, cross_kv: Tuple,
     hd = cfg.head_dim
     q = apply_rope(q.reshape(b, s, nh, hd), cos, sin).transpose(1, 2)
     k = apply_rope(k.reshape(b, s, nh, hd), cos, sin).transpose(1, 2)
-    v = _split_heads(v, nh)
+    v = dit_glue.split_heads(v, nh)
     attn_out = _merge_heads(_attend(q, k, v))
     if not cfg.ref_compat:
         attn_out = _out_proj(attn_p["out_proj"], attn_out, split, mesh)
@@ -223,8 +229,9 @@ def dit_block(params, cfg: DiTConfig, x, rope_cs: Tuple, cross_kv: Tuple,
     h = nh * hd
     w = params["cross_attn"]["in_proj_weight"]
     bb = params["cross_attn"]["in_proj_bias"]
-    q = _split_heads(dense({"weight": w[:h], "bias": bb[:h]},
-                           copy_to_model(xn, mesh) if split else xn), nh)
+    q = dit_glue.split_heads(
+        dense({"weight": w[:h], "bias": bb[:h]},
+              copy_to_model(xn, mesh) if split else xn), nh)
     k, v = cross_kv
     rate = cfg.cross_attn_dropout
     if keep is not None and _dropout_mode(cfg) == "probs":
@@ -252,6 +259,73 @@ def dit_block(params, cfg: DiTConfig, x, rope_cs: Tuple, cross_kv: Tuple,
     up = F.gelu(dense(params["mlp_fc1"], xn))
     gate = torch.sigmoid(dense(params["gate"], xn))
     return _out_proj(params["mlp_fc2"], up * gate, split, mesh) + residual
+
+
+def glue_fused(cfg: DiTConfig, x, operands, *, mesh=None,
+               dropout: bool = False) -> bool:
+    """Whether the block stack runs its elementwise glue on kernel E
+    (``glue_blocks``): x on a CUDA device; no autograd graph to record
+    (grad mode off, or neither x nor any tensor of ``operands``, a tree of
+    what the stack reads, requires grad); a bf16 or fp32 stack; no
+    model-split mesh and no dropout. Elsewhere (the CPU, training, tensor
+    parallelism) the stack is ``dit_block``'s eager ops. Where it holds,
+    a width kernel E does not take raises ValueError
+    (``dit_glue.check_widths``): on the card the stack runs E or nothing."""
+    if not x.is_cuda or dropout or (mesh is not None and mesh.model > 1):
+        return False
+    dtype = getattr(torch, cfg.compute_dtype)
+    if dtype not in (torch.bfloat16, torch.float32):
+        return False
+    if torch.is_grad_enabled() and (
+            x.requires_grad or any(isinstance(t, torch.Tensor)
+                                   and t.requires_grad
+                                   for _, t in tree_paths(operands))):
+        return False
+    dit_glue.check_widths(cfg.hidden_dim, cfg.head_dim,
+                          cfg.mlp_ratio * cfg.hidden_dim, dtype)
+    return True
+
+
+def glue_blocks(prepared, cfg: DiTConfig, x):
+    """The block stack of ``dit_block`` with each GEMM or attention output
+    taken through one ``ops.dit_glue`` function before the next GEMM or
+    attention reads it (kernel E on the card, the eager ops on the CPU).
+    The residual add that ends a block is paired with the next block's
+    norm1; the first norm1 and the last add stand alone. No mesh, no
+    dropout: the stack of ``ditto_forward`` where ``glue_fused`` holds."""
+    blocks = prepared["blocks"]
+    cos, sin = prepared["rope"]
+    xn = dit_glue.add_norm(None, None, x, blocks[0]["norm1"])[1]
+    for i, (blk, (ck, cv)) in enumerate(zip(blocks, prepared["cross_kv"])):
+        attn_p = blk["attn"]
+        nh, _ = _local_heads(attn_p, cfg)
+        q, k, v = dit_glue.qkv_rope(
+            dense({"weight": attn_p["in_proj_weight"]}, xn),
+            attn_p["in_proj_bias"], nh, cos, sin)
+        y, bias = _merge_heads(_attend(q, k, v)), None
+        if not cfg.ref_compat:   # quirk #2: the reference skips out_proj
+            y = dense({"weight": attn_p["out_proj"]["weight"]}, y)
+            bias = attn_p["out_proj"]["bias"]
+        x, xn = dit_glue.add_norm(y, bias, x, blk["norm2"])
+
+        cross_p = blk["cross_attn"]
+        h = nh * cfg.head_dim
+        q = dit_glue.bias_heads(
+            dense({"weight": cross_p["in_proj_weight"][:h]}, xn),
+            cross_p["in_proj_bias"][:h], nh)
+        y = dense({"weight": cross_p["out_proj"]["weight"]},
+                  _merge_heads(_attend(q, ck, cv)))
+        x, xn = dit_glue.add_norm(y, cross_p["out_proj"]["bias"], x,
+                                  blk["norm3"])
+
+        up = dit_glue.gelu_gate(
+            dense({"weight": blk["mlp_fc1"]["weight"]}, xn),
+            blk["mlp_fc1"]["bias"],
+            dense({"weight": blk["gate"]["weight"]}, xn), blk["gate"]["bias"])
+        y = dense({"weight": blk["mlp_fc2"]["weight"]}, up)
+        nxt = blocks[i + 1]["norm1"] if i + 1 < len(blocks) else None
+        x, xn = dit_glue.add_norm(y, blk["mlp_fc2"]["bias"], x, nxt)
+    return x
 
 
 _WEIGHT_GEMMS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -310,12 +384,18 @@ def ditto_forward(params, cfg: DiTConfig, x, text_emb, t, *,
         d, nd = (0, 1) if mesh is None else (mesh.data_index, mesh.data)
         keeps = [k[d * b:(d + 1) * b] for k in draw_keep_masks(
             cfg, generator, b * nd, x.shape[1], text_emb.shape[1], x.device)]
-    block = dit_block
-    if cfg.remat_blocks and torch.is_grad_enabled():
-        block = _remat(cfg)
-    for blk, ckv, keep in zip(prepared["blocks"], prepared["cross_kv"],
-                              keeps):
-        x = block(blk, cfg, x, prepared["rope"], ckv, keep, mesh)
+    fused = glue_fused(cfg, x, prepared, mesh=mesh,
+                       dropout=keeps[0] is not None)
+    annotate("sampler", glue="fused" if fused else "eager")
+    if fused:
+        x = glue_blocks(prepared, cfg, x)
+    else:
+        block = dit_block
+        if cfg.remat_blocks and torch.is_grad_enabled():
+            block = _remat(cfg)
+        for blk, ckv, keep in zip(prepared["blocks"], prepared["cross_kv"],
+                                  keeps):
+            x = block(blk, cfg, x, prepared["rope"], ckv, keep, mesh)
 
     x = dense(params["proj_out"], x.to(x_skip.dtype))
     return x_skip + x

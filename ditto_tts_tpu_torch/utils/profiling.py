@@ -7,7 +7,7 @@ SURVEY 5.2's stand-in for race detection).
 Spans. ``with span(name, **attrs):`` marks a stretch of the program. The
 serving chains record ``request`` (the root: batch, frames), ``encode``,
 ``slp``, ``sampler`` (the whole DDPM or DDIM loop; graph, "captured" or
-"eager") over ``sampler.capture`` (the capture of the step's CUDA graph,
+"eager"; glue, "fused" or "eager", which the DiT forward adds) over ``sampler.capture`` (the capture of the step's CUDA graph,
 where there is one) and one ``sampler.step`` a step (step), ``vq``,
 ``codec_decode``, ``mel`` and ``vocoder`` (the F5 chain: ``request`` over
 ``mel``, ``text_encode``, ``sampler`` and ``vocoder``); the train steps
@@ -24,6 +24,8 @@ stamps host events), the index
 of its parent, a request id that every span under one root shares, and
 its attrs; while a ``torch.profiler`` records, it also opens a
 ``record_function`` range of its name, which the Chrome trace shows.
+``annotate(name, **attrs)`` adds attrs to the innermost open span of
+that name, for what a callee decides after its caller opened the span.
 Spans stay in memory: ``recording().spans()`` returns them as dicts.
 Each thread keeps its own stack of open spans; a span opened on a thread
 with none open is a root.
@@ -74,6 +76,13 @@ def span(name: str, **attrs):
     return _Span(_recorder, name, attrs)
 
 
+def annotate(name: str, **attrs):
+    """Adds ``attrs`` to the innermost span called ``name`` that is open on
+    this thread; nothing while recording is off or no such span is open."""
+    if _recorder is not None:
+        _recorder._annotate(name, attrs)
+
+
 class Recorder:
     """The spans of one ``recording()`` block, in the order they opened."""
 
@@ -100,6 +109,13 @@ class Recorder:
                                 attrs])
         stack.append(index)
         return index
+
+    def _annotate(self, name: str, attrs: Dict[str, Any]):
+        with self._lock:
+            for index in reversed(getattr(self._local, "stack", ())):
+                if self._spans[index][0] == name:
+                    self._spans[index][5].update(attrs)
+                    return
 
     def _close(self, index: int):
         self._spans[index][2] = time.time_ns()

@@ -9,8 +9,14 @@ eager loop counts; two parameter trees of one shape each give their own
 output; B=1, B=8, B=1 in turns each match their eager result; the served
 request equals itself with the step eager; the ``sampler`` span says
 ``graph="captured"`` over one ``sampler.capture``; under grad the step
-stays eager. Every test skips without a CUDA card (the ``dev`` fixture
-decides, at run time). On the card, where JAX is absent and
+stays eager. The DiT's glue runs on kernel E (``models/dit.py:glue_blocks``)
+wherever the step is graphed, so these hold E's graphed replays to its
+eager calls; beside them, E's forward against the eager ops' forward
+(``dit_block``): relative RMS at most 1e-2 in bf16 (a one-ulp difference
+of a layer_norm output, carried through 12 blocks) and 1e-5 in fp32; the
+``sampler`` span says ``glue="fused"``, and ``glue="eager"`` under grad
+with parameters that require it. Every test skips without a CUDA card
+(the ``dev`` fixture decides, at run time). On the card, where JAX is absent and
 tests/conftest.py cannot load:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_graph.py
@@ -143,8 +149,9 @@ def test_first_request_of_a_shape_warms_up_then_replays(dev):
 
 def test_launches_are_counted_per_replay(dev):
     """A 50-step DDPM at ditto-base's 10 s / B=1 shape counts kernel A's
-    24 launches a step (12 layers, self and cross), 1200 a request, on the
-    shape's first request and on the next."""
+    24 launches a step (12 layers, self and cross), 1200 a request, and
+    kernel E's 73 a step (6 a block and the first norm), 3650 a request,
+    on the shape's first request and on the next."""
     cfg = _cfg(BASE, 50)
     tree = _dit_params(BASE, 0, dev)
     x, emb = _inputs(BASE, 1, 750, 63, 7, dev)
@@ -153,10 +160,12 @@ def test_launches_are_counted_per_replay(dev):
         _graphed(tree, cfg, x, emb, 8)
         torch.cuda.synchronize()
         assert kernels.launches == {"attention": 1200, "conv1d": 0,
-                                    "act_conv": 0, "snake": 0}
+                                    "act_conv": 0, "snake": 0,
+                                    "dit_glue": 3650}
     kernels.reset_launches()
     _eager(tree, cfg, x, emb, 8)
     assert kernels.launches["attention"] == 1200
+    assert kernels.launches["dit_glue"] == 3650
 
 
 def test_two_parameter_trees_each_give_their_own_output(dev):
@@ -191,6 +200,7 @@ def test_every_step_replays_under_one_capture(dev):
         assert names == ["sampler", "sampler.capture",
                          *["sampler.step"] * k]
         assert spans[0]["attrs"]["graph"] == "captured"
+        assert spans[0]["attrs"]["glue"] == "fused"
         assert all(s["parent"] == 0 for s in spans[1:])
         assert spans[1]["end_ns"] <= spans[2]["start_ns"]
 
@@ -213,7 +223,7 @@ def test_under_grad_the_step_stays_eager(dev):
 def test_served_request_equals_itself_with_the_step_eager(dev, monkeypatch):
     """A default 10 s / B=1 request through the serving entry point, graphed
     and with ``engages`` false, bit for bit, with the default path's exact
-    launches (A 1200, B 90, C 54, D 55) either way."""
+    launches (A 1200, B 90, C 54, D 55, E 3650) either way."""
     cfg = serving_config()
     params = tparams.init_generator_params(cfg, 0).to(dev)
     rng = np.random.default_rng(0)
@@ -222,7 +232,7 @@ def test_served_request_equals_itself_with_the_step_eager(dev, monkeypatch):
     text = rng.integers(0, 50257, (1, 64))
     serve = gen_mod.build_synthesize_pipelined(cfg)
     want_launches = {"attention": 1200, "conv1d": 90, "act_conv": 54,
-                     "snake": 55}
+                     "snake": 55, "dit_glue": 3650}
 
     def request():
         kernels.reset_launches()
@@ -236,3 +246,77 @@ def test_served_request_equals_itself_with_the_step_eager(dev, monkeypatch):
     monkeypatch.setattr(step_graph, "engages", lambda x: False)
     eager = request()
     assert _same(graphed[0], eager) and _same(graphed[1], eager)
+
+
+def _rel_rms(got, want):
+    torch.cuda.synchronize()
+    d = (got.float() - want.float()).square().mean().sqrt()
+    return (d / want.float().square().mean().sqrt()).item()
+
+
+@pytest.mark.parametrize("name,dit,b,launches,bound", [
+    ("base_10s_b2", BASE, 2, 73, 1e-2), ("ref_10s_b2", REF, 2, 31, 1e-5)])
+def test_fused_forward_is_the_eager_forward_within_its_bound(
+        dev, monkeypatch, name, dit, b, launches, bound):
+    """``ditto_forward`` with the glue on kernel E against the eager ops
+    (``glue_fused`` false), at 10 s, several timesteps."""
+    tree = _dit_params(dit, 0, dev)
+    x, emb = _inputs(dit, b, 750, 64, 3, dev)
+    t = torch.tensor([999, 400][:b], device=dev)
+    with torch.inference_mode():
+        prep = dit_mod.prepare(tree, dit, emb, x.shape[1])
+        kernels.reset_launches()
+        fused = dit_mod.ditto_forward(tree, dit, x, emb, t, prepared=prep)
+        assert kernels.launches["dit_glue"] == launches
+        monkeypatch.setattr(dit_mod, "glue_fused", lambda *a, **k: False)
+        eager = dit_mod.ditto_forward(tree, dit, x, emb, t, prepared=prep)
+    assert kernels.launches["dit_glue"] == launches
+    assert bool(torch.isfinite(fused).all())
+    assert _rel_rms(fused, eager) <= bound, _rel_rms(fused, eager)
+
+
+@pytest.mark.parametrize("name,dit", [("base", BASE), ("ref", REF)])
+def test_graphed_fused_step_equals_its_eager_call(dev, name, dit):
+    """One step's forward captured with kernel E in it, replayed on a new
+    input, gives the eager fused call's bits on that input."""
+    tree = _dit_params(dit, 1, dev)
+    x, emb = _inputs(dit, 1, 750, 64, 5, dev)
+    x2 = _inputs(dit, 1, 750, 64, 6, dev)[0]
+    t = torch.tensor([500], device=dev)
+    with torch.inference_mode():
+        prep = dit_mod.prepare(tree, dit, emb, x.shape[1])
+
+        def forward(xx, tt):
+            return dit_mod.ditto_forward(tree, dit, xx, emb, tt,
+                                         prepared=prep)
+
+        model_fn = step_graph.capture(forward, x, t, ("glue", name))
+        model_fn(x, t)
+        kernels.reset_launches()
+        got = model_fn(x2, t).clone()
+        assert kernels.launches["dit_glue"] == 1 + 6 * dit.num_layers
+        assert _same(got, forward(x2, t))
+
+
+def test_under_grad_with_parameters_that_require_it_the_glue_is_eager(
+        dev, monkeypatch):
+    """The sampler under grad with parameters that require grad runs the
+    eager ops (``glue="eager"``, no E launch): the bits of the same
+    sampler with ``glue_fused`` false."""
+    cfg = _cfg(TINY, 8)
+    tree = _dit_params(TINY, 0, dev)
+    x, emb = _inputs(TINY, 2, 40, 9, 1, dev)
+    schedule, taus = gen_mod._schedule(cfg, None)
+    with monkeypatch.context() as m:
+        m.setattr(dit_mod, "glue_fused", lambda *a, **k: False)
+        want = _graphed(tree, cfg, x, emb, 2)
+    grad_tree = tparams.tree_map(lambda a: a.clone().requires_grad_(), tree)
+    kernels.reset_launches()
+    with recording() as rec, torch.enable_grad():
+        got = gen_mod._sample(
+            SimpleNamespace(dit=grad_tree), cfg, schedule, taus, x, emb,
+            generator=torch.Generator(device=dev).manual_seed(2))
+    attrs = rec.spans()[0]["attrs"]
+    assert attrs["graph"] == "eager" and attrs["glue"] == "eager"
+    assert kernels.launches["dit_glue"] == 0
+    assert _same(got.detach(), want)

@@ -28,6 +28,17 @@ bf16 ulp of each value, plus that fp32 allowance for the values so near
 zero that their ulp is smaller than it. The first and last 8 samples of
 each row, where the polyphase edges differ from the Pallas ones, are
 checked apart.
+
+Kernel E (the DiT block's glue, ``ops/dit_glue.py``) is held to the eager
+ops it replaces, run on the card, at ditto-base's widths (bf16, 8 x 750
+rows of 768, heads of 64, ff 3072), at ditto-ref's (fp32, one head of 768),
+at odd row counts, at a row narrower than a warp's vectors and at rows
+between those widths (add_norm's other register layouts): qkv_rope,
+bias_heads, gelu_gate and add_norm's sum equal them bit for bit;
+add_norm's layer_norm, whose statistics sum in another order than
+PyTorch's reductions, is within one ulp of the compute dtype of each value
+plus 8 fp32 ulps of the largest (2^-20 max |xn|), for the values so near
+zero that their own ulp is smaller than the statistics' rounding.
 """
 
 import pytest
@@ -40,6 +51,8 @@ from ditto_tts_tpu_torch.ops.attention import (attention, attention_cuda,
                                               attention_plain)
 from ditto_tts_tpu_torch.ops.conv import (conv1d, conv1d_cuda,
                                           conv1d_ncl_batched, conv1d_plain)
+from ditto_tts_tpu_torch.ops import dit_glue
+from ditto_tts_tpu_torch.ops.rope import rope_tables
 from ditto_tts_tpu_torch.ops.snake import (polyphase_anti_aliased_activation,
                                           snake_beta, snake_coeffs)
 from ditto_tts_tpu_torch.ops.snake_fused import (fused_snake_cuda,
@@ -491,3 +504,130 @@ def test_kernels_without_backward_refuse_grad(gen):
     with torch.no_grad():
         _check(conv1d_cuda(x, w), conv1d_plain(x, w), torch.float32)
     assert kernels.launches["conv1d"] == before["conv1d"] + 1
+
+
+# kernel E: (dtype, B, S, hidden, heads, ff)
+GLUE_SHAPES = {
+    "base": (torch.bfloat16, 8, 750, 768, 12, 3072),
+    "ref": (torch.float32, 8, 750, 768, 1, 3072),
+    "base_odd_rows": (torch.bfloat16, 1, 37, 768, 12, 3072),
+    "ref_odd_rows": (torch.float32, 3, 37, 768, 1, 3072),
+    "narrow_bf16": (torch.bfloat16, 2, 41, 32, 2, 128),
+    "narrow_fp32": (torch.float32, 3, 37, 32, 2, 128),
+    "mid_fp32": (torch.float32, 2, 19, 384, 6, 1536),
+    "wide_bf16": (torch.bfloat16, 1, 37, 1024, 16, 4096)}
+
+
+def _glue_case(gen, name):
+    dtype, b, s, h, nh, ff = GLUE_SHAPES[name]
+    return dtype, b, s, h, nh, ff, dict(
+        rn=lambda *shape, scale=1.0: _rn(gen, *shape, dtype=dtype,
+                                         scale=scale))
+
+
+def _equal(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+
+
+def _within_an_ulp(got, want, dtype):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    g, w = got.float(), want.float()
+    _, e = torch.frexp(w)
+    bits = 8 if dtype == torch.bfloat16 else 24
+    ulp = torch.where(w == 0, torch.zeros_like(w),
+                      torch.ldexp(torch.ones_like(w), e - bits))
+    err = (g - w).abs()
+    bad = err > ulp + 2.0 ** -20 * w.abs().max()
+    assert not bad.any(), (err.max().item(), int(bad.sum().item()))
+
+
+@pytest.mark.parametrize("name", list(GLUE_SHAPES))
+def test_dit_glue_qkv_rope_kernel(gen, name):
+    """q, k and v of the packed in_proj output, and the cross-attention's
+    q, bit for bit; each one launch."""
+    dtype, b, s, h, nh, _, t = _glue_case(gen, name)
+    qkv, bias = t["rn"](b, s, 3 * h, scale=2.0), t["rn"](3 * h, scale=0.5)
+    cos, sin = rope_tables(s, h // nh, dtype=dtype, device="cuda")
+    before = kernels.launches["dit_glue"]
+    got = dit_glue.qkv_rope_cuda(qkv, bias, nh, cos, sin)
+    assert kernels.launches["dit_glue"] == before + 1
+    for g, w in zip(got, dit_glue.qkv_rope_plain(qkv, bias, nh, cos, sin)):
+        _equal(g, w)
+    y = qkv[..., :h].contiguous()
+    _equal(dit_glue.bias_heads_cuda(y, bias[:h], nh),
+           dit_glue.bias_heads_plain(y, bias[:h], nh))
+    assert kernels.launches["dit_glue"] == before + 2
+
+
+@pytest.mark.parametrize("name", list(GLUE_SHAPES))
+def test_dit_glue_gelu_gate_kernel(gen, name):
+    dtype, b, s, _, _, ff, t = _glue_case(gen, name)
+    a, g = t["rn"](b, s, ff, scale=3.0), t["rn"](b, s, ff, scale=3.0)
+    ba, bg = t["rn"](ff, scale=0.5), t["rn"](ff, scale=0.5)
+    before = kernels.launches["dit_glue"]
+    got = dit_glue.gelu_gate_cuda(a, ba, g, bg)
+    assert kernels.launches["dit_glue"] == before + 1
+    _equal(got, dit_glue.gelu_gate_plain(a, ba, g, bg))
+
+
+@pytest.mark.parametrize("variant", ["add_norm", "no_bias", "norm_only",
+                                     "add_only"])
+@pytest.mark.parametrize("name", list(GLUE_SHAPES))
+def test_dit_glue_add_norm_kernel(gen, name, variant):
+    """The residual sum bit for bit, its layer_norm within an ulp: after an
+    out_proj, after ref_compat's bare attention output (no bias), the first
+    block's norm1 alone, the last block's sum alone; one launch each."""
+    dtype, b, s, h, _, _, t = _glue_case(gen, name)
+    res = t["rn"](b, s, h, scale=2.0)
+    y = None if variant == "norm_only" else t["rn"](b, s, h)
+    bias = t["rn"](h, scale=0.5) if variant in ("add_norm",
+                                                "add_only") else None
+    norm = {"weight": (1.0 + t["rn"](h, scale=0.2).float()).to(dtype),
+            "bias": t["rn"](h, scale=0.2)}
+    norm = None if variant == "add_only" else norm
+    before = kernels.launches["dit_glue"]
+    x, xn = dit_glue.add_norm_cuda(y, bias, res, norm)
+    assert kernels.launches["dit_glue"] == before + 1
+    want_x, want_xn = dit_glue.add_norm_plain(y, bias, res, norm)
+    _equal(x, want_x)
+    if norm is None:
+        assert xn is None
+    else:
+        _within_an_ulp(xn, want_xn, dtype)
+
+
+def test_dit_glue_refuses_what_it_does_not_take(gen):
+    """Kernel E has no backward, takes fp32 or bf16 of one type and
+    16-byte aligned rows; a refused call launches nothing."""
+    y = _rn(gen, 2, 5, 64, dtype=torch.bfloat16)
+    bias = _rn(gen, 64, dtype=torch.bfloat16)
+    before = dict(kernels.launches)
+    with pytest.raises(RuntimeError, match="no backward"):
+        dit_glue.add_norm_cuda(y.float().requires_grad_(), None, y.float(),
+                               None)
+    with pytest.raises(TypeError):
+        dit_glue.gelu_gate_cuda(y.half(), bias.half(), y.half(), bias.half())
+    with pytest.raises(TypeError):
+        dit_glue.add_norm_cuda(y.float(), None, y, None)
+    odd = _rn(gen, 2 * 5 * 64 + 1, dtype=torch.bfloat16)[1:].view(2, 5, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        dit_glue.bias_heads_cuda(odd, bias, 4)
+    with pytest.raises(ValueError, match="aligned"):
+        dit_glue.add_norm_cuda(_rn(gen, 2, 5, 68, dtype=torch.bfloat16)[
+            ..., :64], bias, y, None)
+    assert kernels.launches == before
+    with torch.no_grad():
+        x = y.float().requires_grad_()
+        _equal(dit_glue.add_norm_cuda(x, None, x, None)[0], x + x)
+    assert kernels.launches["dit_glue"] == before["dit_glue"] + 1
+    # a head's halves in whole 16-byte vectors; a row of at most 6 x 32
+    with pytest.raises(ValueError, match="head width 24"):
+        dit_glue.check_widths(96, 24, 384, torch.bfloat16)
+    dit_glue.check_widths(96, 24, 384, torch.float32)
+    with pytest.raises(ValueError, match="hidden width 2048"):
+        dit_glue.check_widths(2048, 64, 8192, torch.bfloat16)
+    dit_glue.check_widths(768, 768, 3072, torch.float32)
+    dit_glue.check_widths(1536, 64, 6144, torch.bfloat16)

@@ -2,7 +2,17 @@
 
 Tolerances: fp32 2e-5 (same math, another summation order); the bf16
 forward 5e-2 relative to the output scale (bf16 rounds at other places in
-the two frameworks)."""
+the two frameworks).
+
+The block stack regrouped for kernel E (``dit.glue_blocks``: each GEMM or
+attention output through one ``ops.dit_glue`` function, a block's last
+residual add paired with the next block's norm1) runs the eager ops on the
+CPU and gives ``dit_block``'s stack bit for bit; ``dit.glue_fused`` sends
+the CPU, grad with operands that require it, a model-split mesh and
+dropout to the eager stack, and raises where it would take E at widths E
+does not take."""
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -169,3 +179,78 @@ def test_ddpm_sample_generator_is_deterministic():
 
     assert torch.equal(run(1), run(1))
     assert not torch.equal(run(1), run(2))
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ref_compat", [False, True])
+def test_glue_blocks_give_the_eager_stack_bit_for_bit(monkeypatch,
+                                                      compute_dtype,
+                                                      ref_compat):
+    cfg = to_torch_cfg(SMALL.replace(ref_compat=ref_compat,
+                                     compute_dtype=compute_dtype,
+                                     num_layers=3))
+    _, tp, x, text, t = _dit_case(SMALL.replace(num_layers=3), seed=6)
+    with torch.no_grad():
+        want = tdit.ditto_forward(tp, cfg, tt(x), tt(text), tt(t))
+        monkeypatch.setattr(tdit, "glue_fused", lambda *a, **k: True)
+        got = tdit.ditto_forward(tp, cfg, tt(x), tt(text), tt(t))
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+_CARD_X = SimpleNamespace(is_cuda=True, requires_grad=False)
+
+
+@pytest.mark.parametrize("case,fused", [
+    ("cpu", False), ("card", True), ("card_under_grad_params_need_it", False),
+    ("card_under_grad_nothing_needs_it", True), ("card_x_needs_grad", False),
+    ("card_model_split_mesh", False), ("card_data_only_mesh", True),
+    ("card_dropout", False), ("card_head_not_taken", ValueError),
+    ("cpu_head_not_taken", False)])
+def test_glue_fused_sends_what_e_cannot_run_to_the_eager_stack(case, fused):
+    """``glue_fused`` on the CPU and, for its other conditions, on a
+    stand-in for a CUDA x (the positive cases show the stand-in passes
+    the device test); a width E does not take raises on the card rather
+    than run the eager stack there."""
+    cfg = to_torch_cfg(SMALL.replace(compute_dtype="bfloat16"))
+    w = torch.zeros(4, 4)
+    x, kw, grad = _CARD_X, {}, False
+    if case == "cpu":
+        x = torch.zeros(2, 3, cfg.hidden_dim)
+    elif case == "card_under_grad_params_need_it":
+        w, grad = w.requires_grad_(), True
+    elif case == "card_under_grad_nothing_needs_it":
+        grad = True
+    elif case == "card_x_needs_grad":
+        x, grad = SimpleNamespace(is_cuda=True, requires_grad=True), True
+    elif case.endswith("mesh"):
+        kw["mesh"] = SimpleNamespace(model=2 if "split" in case else 1,
+                                     data=4)
+    elif case == "card_dropout":
+        kw["dropout"] = True
+    if case.endswith("head_not_taken"):    # heads of 24: halves of 12 bf16
+        cfg = to_torch_cfg(SMALL.replace(compute_dtype="bfloat16",
+                                         hidden_dim=96, num_heads=4))
+    if case == "cpu_head_not_taken":
+        x = torch.zeros(2, 3, cfg.hidden_dim)
+    with torch.set_grad_enabled(grad):
+        operands = {"blocks": [{"w": w}], "rope": (torch.zeros(2),)}
+        if fused is ValueError:
+            with pytest.raises(ValueError, match="head width 24"):
+                tdit.glue_fused(cfg, x, operands, **kw)
+        else:
+            assert tdit.glue_fused(cfg, x, operands, **kw) is fused
+
+
+def test_cpu_training_forward_runs_the_eager_stack(monkeypatch):
+    """On the CPU, under grad with parameters that require it, the forward
+    and its gradient run ``dit_block``'s ops, never ``glue_blocks``."""
+    def refuse(*a, **k):
+        raise AssertionError("glue_blocks ran")
+
+    monkeypatch.setattr(tdit, "glue_blocks", refuse)
+    cfg = to_torch_cfg(SMALL)
+    _, tp, x, text, t = _dit_case(SMALL, seed=7)
+    tp = tree_map(lambda a: a.requires_grad_(), tp)
+    out = tdit.ditto_forward(tp, cfg, tt(x), tt(text), tt(t))
+    out.square().mean().backward()
+    assert tp["blocks"][0]["norm1"]["weight"].grad is not None

@@ -4,7 +4,7 @@ as one CUDA graph (``infer/step_graph.py``) equal to the eager step bit for
 bit at the published widths (22 x 1024, B = 1, 2 x 1 rows); an F5 request
 at the published widths counting one A launch a block a step and its
 vocoder's C and D launches; and DiTTo's served request keeping its
-launches (A 1200, B 90, C 54, D 55) beside the F5 chain. Every test skips without a
+launches (A 1200, B 90, C 54, D 55, E 3650) beside the F5 chain. Every test skips without a
 CUDA card (the ``dev`` fixture decides, at run time). On the card, where
 JAX is absent and tests/conftest.py cannot load:
 
@@ -131,4 +131,5 @@ def test_dittos_served_request_keeps_its_launches(dev):
           torch.Generator(device=dev).manual_seed(9))
     torch.cuda.synchronize()
     assert kernels.launches == {"attention": 1200, "conv1d": 90,
-                                "act_conv": 54, "snake": 55}
+                                "act_conv": 54, "snake": 55,
+                                "dit_glue": 3650}

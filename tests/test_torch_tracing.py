@@ -186,7 +186,8 @@ def test_served_request_records_its_stages(params, entry):
     assert [s["attrs"]["step"] for s in steps] == list(range(K))
     assert all(s["parent"] == sampler for s in steps)
     assert spans[sampler]["attrs"] == {"batch": B, "frames": frames,
-                                       "steps": K, "graph": "eager"}
+                                       "steps": K, "graph": "eager",
+                                       "glue": "eager"}
     for i, s in enumerate(spans):
         assert s["start_ns"] <= s["end_ns"]
         if s["parent"] is not None:
@@ -308,6 +309,47 @@ def test_threads_keep_their_own_stacks_and_recordings_restore():
     assert got["worker"]["parent"] is None and got["worker"]["request"] == 1
     assert got["child"]["parent"] == 0 and got["child"]["request"] == 0
     assert profiling._recorder is None
+
+
+def test_annotate_adds_to_the_innermost_open_span_of_its_name():
+    """What a callee decides lands on its caller's span: the innermost open
+    one of the name, on this thread only; nothing when recording is off,
+    no such span is open, or it has closed."""
+    profiling.annotate("sampler", glue="off")
+    seen = []
+
+    def other_thread():
+        with span("sampler", where="thread"):
+            seen.append(1)
+
+    with recording() as rec:
+        profiling.annotate("sampler", glue="none open")
+        with span("sampler", steps=2):
+            with span("sampler", steps=1):
+                with span("sampler.step"):
+                    profiling.annotate("sampler", glue="fused")
+                    profiling.annotate("absent", glue="eager")
+            profiling.annotate("sampler", graph="eager")
+            t = threading.Thread(target=other_thread)
+            t.start()
+            t.join(timeout=30)
+        profiling.annotate("sampler", glue="closed")
+    assert seen == [1]
+    assert [(s["name"], s["attrs"]) for s in rec.spans()] == [
+        ("sampler", {"steps": 2, "graph": "eager"}),
+        ("sampler", {"steps": 1, "glue": "fused"}),
+        ("sampler.step", {}),
+        ("sampler", {"where": "thread"})]
+
+
+@pytest.mark.parametrize("entry", ["ddpm", "ddim", "recorded", "slp"])
+def test_cpu_sampler_records_glue_eager(params, entry):
+    """On the CPU the DiT forward runs the eager block stack and says so on
+    the ``sampler`` span."""
+    with recording() as rec:
+        _serve(entry, params)
+    assert [s["attrs"]["glue"] for s in rec.spans()
+            if s["name"] == "sampler"] == ["eager"]
 
 
 def _no_capture(*a, **k):
