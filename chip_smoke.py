@@ -23,7 +23,10 @@ Phases (any failure exits non-zero and prints no result line):
               modes, on [B, C, T] and [B, T, C], with a ragged T and
               T < 8, and in its polyphase mode, sin2 and sinf, at the
               default path's 768-, 48- and 24-wide stages and at T of 1-17;
-              E's three modes at ditto-base's and ditto-ref's widths);
+              E's three modes at ditto-base's and ditto-ref's widths; A's
+              prefill, decode and NAR launches at VALL-E's shapes, then
+              one full-size VALL-E request with its launches exact,
+              untimed);
               kernel and library times (device ms of a replayed CUDA
               graph), the plain version's, and the bound
   4. serving  the full-width chain of bench.py (12-layer 768-wide DiT,
@@ -235,6 +238,11 @@ FUSED_NCL_PATH = {"attention": 0, "conv1d": 4, "act_conv": 36, "snake": 1,
 # launches of kernels A, C and D per F5 request at the published widths
 # (22 blocks x 32 guided steps; BigVGAN's act->conv pairs and standalone
 # activations); B's count is read from the phase's held request
+# one VALL-E request (B=32, 128 phonemes, 3 s prompt, 750 tokens): A in
+# the AR prefill and the 7 NAR stages (12 + 84), A's decode launch 12 a
+# token, B in the codec's encode and decode
+VALLE_PATH = {"attention": 12 + 7 * 12, "kv_decode": 750 * 12,
+              "conv1d": 28}
 F5_PATH = {"attention": 22 * 32, "act_conv": 54, "snake": 55, "dit_glue": 0}
 # matmul-softmax attention per SLP-chain request (no kernel: JAX computes
 # it outside Pallas): the decoder's self and cross attention over one
@@ -414,9 +422,15 @@ def check_launches(path: str, launches: dict, per_request: dict, n: int):
     """Every kernel launched exactly as often as the path runs it (n
     requests): a kernel of the path that never ran fails, and so does one
     that ran where the path has none."""
-    want = {k: v * n for k, v in per_request.items()}
-    if launches != want:
+    want = ran({k: v * n for k, v in per_request.items()})
+    if ran(launches) != want:
         fail(f"{path}: launches {launches}, expected {want}")
+
+
+def ran(launches: dict) -> dict:
+    """The kernels a launch count has launched: a kernel counted at 0 is
+    left out, so a path's expected counts need not name every kernel."""
+    return {k: v for k, v in launches.items() if v}
 
 
 class Checks:
@@ -771,6 +785,36 @@ def kernel_phase(torch, rec):
                        E.gelu_gate_cuda(a, fb, gt, gb),
                        E.gelu_gate_plain(a, fb, gt, gb), dn)
         del y, res, got, want, qkv, a, gt
+
+    # ---- A at VALL-E's shapes (B=32, H=16, head 64), q, k and v views of
+    # the packed projection [B, S, 3, H, 64] as the model passes them, the
+    # cache [B, H, 1,102, 64] with random keys past the length, so a key
+    # read past it shows: the AR prefill's masked launch (128 text keys
+    # seen by every row, 224 prompt frames causal), A's decode launch at
+    # the first, average and last steps' lengths, and a NAR stage's
+    # unmasked launch over 1,103 positions; then one VALL-E request's
+    # launches (untimed) ----
+    from ditto_tts_tpu_torch.ops.attention import attention
+    kc, vc = (rn(32, 16, 1102, 64, dtype=bf16) for _ in range(2))
+    q = rn(32, 352, 3, 16, 64, dtype=bf16)[:, :, 0].transpose(1, 2)
+    checks.compare("attention", "bf16 prefix 128 causal B32 H16 Sq352 kv "
+                   "352 of 1102 D64",
+                   attention(q, kc, vc, causal=True, prefix=128, kv_len=352),
+                   attention_plain(q, kc, vc, causal=True, prefix=128,
+                                   kv_len=352), "bfloat16")
+    q = rn(32, 1, 3, 16, 64, dtype=bf16)[:, :, 0].transpose(1, 2)
+    for kvl in (353, 728, 1102):
+        lens = torch.full((1,), kvl, dtype=torch.int32, device=dev)
+        checks.compare("kv_decode", f"bf16 B32 H16 kv {kvl} of 1102 D64",
+                       attention(q, kc, vc, kv_lens=lens),
+                       attention_plain(q, kc, vc, kv_lens=lens), "bfloat16")
+    del kc, vc
+    q, k, v = (t.transpose(1, 2) for t in rn(
+        32, 1103, 3, 16, 64, dtype=bf16).unbind(2))
+    checks.compare("attention", "bf16 B32 H16 S1103 D64 (NAR)",
+                   attention(q, k, v), attention_plain(q, k, v), "bfloat16")
+    del q, k, v
+    rec["valle_launches"] = valle_request_launches(torch)
     if checks.bad:
         fail("kernel parity: " + "; ".join(checks.bad))
     for name, e in list(entries.items()) + list(sites.items()):
@@ -787,6 +831,39 @@ def kernel_phase(torch, rec):
     rec["kernel_entries"] = entries
     rec["kernel_sites"] = sites
     return entries
+
+
+def valle_request_launches(torch) -> dict:
+    """One full-size VALL-E request (``VallePipelineConfig()``, random
+    weights) at the cell's shapes, its kernel launches held to
+    ``VALLE_PATH`` exactly."""
+    from ditto_tts_tpu_torch import kernels
+    from ditto_tts_tpu_torch.config import VallePipelineConfig
+    from ditto_tts_tpu_torch.infer.generator import build_synthesize_pipelined
+    from ditto_tts_tpu_torch.params import ValleParams, init_valle_params, \
+        tree_map
+    cfg = VallePipelineConfig()
+    params = init_valle_params(cfg, 0)
+    params = ValleParams(**{f: tree_map(lambda t: t.cuda(), getattr(
+        params, f)) for f in ("ar", "nar", "codec")})
+    g = torch.Generator().manual_seed(3)
+    audio = 0.05 * torch.randn((32, 1, 72000), generator=g)
+    text = torch.randint(0, 512, (32, 128), generator=g)
+    serve = build_synthesize_pipelined(cfg)
+    kernels.reset_launches()
+    wav = serve(params, audio, None, text,
+                torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    if tuple(wav.shape) != (32, 240000) or not bool(
+            torch.isfinite(wav).all()):
+        fail(f"VALL-E request: waveform {tuple(wav.shape)}, finite "
+             f"{bool(torch.isfinite(wav).all())}")
+    check_launches("VALL-E request", launches, VALLE_PATH, 1)
+    log(f"  VALL-E request: launches {launches}")
+    del params, wav
+    torch.cuda.empty_cache()
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -3018,7 +3095,7 @@ def parallel_phase(torch, np, card, rec):
             per_rank = [r["cases"][name] for r in ranks]
             launches[name] = [c["launches"] for c in per_rank]
             for r, c in enumerate(per_rank):
-                if c["launches"] != want:
+                if ran(c["launches"]) != ran(want):
                     fail(f"mesh {name} rank {r}: launches {c['launches']} "
                          f"a step, expected {want}")
             ref = per_rank[0]
@@ -3038,8 +3115,8 @@ def parallel_phase(torch, np, card, rec):
         tp = [r["cases"]["1x2"] for r in ranks]
         ar_s = tp[0]["all_reduce_fp32_activation_s"]
         for r, c in enumerate(tp):
-            if c["bf16_launches"] != {k: v * MESH_TIMED
-                                      for k, v in want.items()}:
+            if ran(c["bf16_launches"]) != ran({k: v * MESH_TIMED
+                                               for k, v in want.items()}):
                 fail(f"bf16 mesh step rank {r}: launches {c['bf16_launches']}")
             if not all(np.isfinite(c["bf16_losses"])):
                 fail(f"bf16 mesh step rank {r}: losses {c['bf16_losses']}")

@@ -451,3 +451,76 @@ class F5PipelineConfig:
         """F5's ``fix_duration`` in mel frames: int(seconds * sr / hop)."""
         v = self.vocoder
         return int(self.sampler.fix_duration * v.sampling_rate / v.hop_size)
+
+
+@dataclasses.dataclass(frozen=True)
+class ValleModelConfig(_JsonMixin):
+    """VALL-E's two decoders (arXiv:2301.02111 §5.1; the layer equations of
+    lifeiteng/vall-e ``valle/models/valle.py``): an autoregressive (AR) and
+    a non-autoregressive (NAR) stack of ``num_layers`` pre-LN layers each,
+    width ``d_model``, ``nhead`` heads, a ReLU feed-forward of ``ffn_dim``;
+    ``num_phonemes`` text ids; ``num_codebooks`` EnCodec codebooks of
+    ``codebook_size`` codes (the AR's audio ids add EOS, id
+    ``codebook_size``). ``compute_dtype`` is the operand type of the
+    layers' GEMMs and attention and of the residual stream (LayerNorm
+    statistics, softmax sums, embeddings, logits and sampling stay
+    fp32)."""
+
+    d_model: int = 1024
+    nhead: int = 16
+    num_layers: int = 12
+    ffn_dim: int = 4096
+    num_phonemes: int = 512
+    num_codebooks: int = 8
+    codebook_size: int = 1024
+    norm_eps: float = 1e-5
+    compute_dtype: str = "bfloat16"
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.nhead
+
+    @property
+    def eos(self) -> int:
+        return self.codebook_size
+
+
+@dataclasses.dataclass(frozen=True)
+class ValleSamplerConfig(_JsonMixin):
+    """The AR decode: ``generated_frames`` tokens a row, each drawn top-k
+    (``top_k``) at ``temperature`` from the request's generator. EOS is
+    never drawn, so every row decodes exactly ``generated_frames`` tokens
+    (benchmarks of token generators ignore EOS alike). The NAR stages take
+    the argmax."""
+
+    generated_frames: int = 750
+    top_k: int = 50
+    temperature: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class VallePipelineConfig:
+    """The VALL-E serving chain: EnCodec encode of the prompt into the
+    model's ``num_codebooks`` codebooks (8: 6 kbps at 24 kHz), the AR
+    prefill and its decode over a KV cache, the NAR stages 2..8, and
+    EnCodec decode of the generated frames."""
+
+    model: ValleModelConfig = dataclasses.field(
+        default_factory=ValleModelConfig)
+    sampler: ValleSamplerConfig = dataclasses.field(
+        default_factory=ValleSamplerConfig)
+    codec: CodecConfig = dataclasses.field(
+        default_factory=lambda: CodecConfig(num_codebooks_used=8))
+
+    def to_json(self) -> str:
+        return json.dumps(_asdict(self), indent=2, sort_keys=True)
+
+    @classmethod
+    def from_json(cls, s: str):
+        d = json.loads(s)
+        return cls(model=ValleModelConfig(**d["model"]),
+                   sampler=ValleSamplerConfig(**d["sampler"]),
+                   codec=CodecConfig(**_tuplify(d["codec"], ("ratios",))))
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)

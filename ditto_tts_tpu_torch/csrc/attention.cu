@@ -11,6 +11,12 @@
 // copy. Keys >= kv_len, and keys after the query when causal, are masked;
 // K/V tiles wholly past the causal limit of a query tile are skipped.
 //
+// Two more bf16 launches serve an autoregressive model over a KV cache
+// (VALL-E): attn_kernel_tc_masked, the same tensor-core kernel with a
+// prefix-causal mask and the key length read from device memory, and
+// kv_decode_kernel, one query a (row, head) over the cache (further below).
+// The unmasked launches above are unchanged.
+//
 // What bounds it on an H100: at the DiT's self-attention (B=4, H=12,
 // S=750..1024, D=64, bf16) the work is 4*B*H*S^2*D = 6.9e9..1.6e10 FLOP
 // against 18..25 MB of Q/K/V/O: operations (7..16 us at the bf16
@@ -255,17 +261,22 @@ constexpr size_t attn_tc_smem_bytes() {
          sizeof(__nv_bfloat16);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kTcWarps * 32)
-attn_kernel_tc(const __nv_bfloat16* __restrict__ q,
-               const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v,
-               __nv_bfloat16* __restrict__ o, Strides qs, Strides ks,
-               Strides vs, Strides os, int H, int Sq, int Sk, int kv_len,
-               int causal, float scale) {
+// The body of the bf16 kernels. kPrefix false is today's kernel: keys
+// >= kv_len masked, and keys after the row when causal. kPrefix true adds a
+// prefix: with causal, key kc is visible to row r iff kc < kv_len and
+// (kc < prefix or kc <= r), so rows before the prefix see the whole prefix
+// and later rows the prefix and the keys up to themselves (a prefix-LM's
+// mask); causal is prefix = 0. K/V tiles past max(prefix, q0 + BQ) are
+// skipped.
+template <int D, bool kPrefix>
+__device__ __forceinline__ void attn_tc_body(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+    Strides qs, Strides ks, Strides vs, Strides os, int H, int Sq, int Sk,
+    int kv_len, int causal, int prefix, float scale,
+    unsigned char* smem_raw) {
   constexpr int BQ = 16 * kTcWarps, BK = kTcBK, P = D + 8;   // row pitch
   constexpr int NTHR = kTcWarps * 32, CH = D / 8;   // 16-byte chunks per row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][P]
   __nv_bfloat16* Ks = Qs + BQ * P;                                 // [2][BK][P]
   __nv_bfloat16* Vs = Ks + 2 * BK * P;                             // [2][BK][P]
@@ -280,7 +291,8 @@ attn_kernel_tc(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* ob = o + b * os.b + h * os.h;
 
   const int kv_lim = min(Sk, kv_len);            // keys that may be valid
-  const int kv_end = causal ? min(kv_lim, q0 + BQ) : kv_lim;
+  const int kv_end =
+      causal ? min(kv_lim, kPrefix ? max(prefix, q0 + BQ) : q0 + BQ) : kv_lim;
   const int ntiles = (kv_end + BK - 1) / BK;     // >= 1: kv_len >= 1
 
   for (int i = tid; i < BQ * CH; i += NTHR) {
@@ -354,7 +366,8 @@ attn_kernel_tc(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kc = k0 + n * 8 + 2 * qd + (e & 1);
-        const bool ok = kc < kv_lim && (!causal || kc <= row0 + (e >> 1) * 8);
+        const bool ok = kc < kv_lim && (!causal || (kPrefix && kc < prefix) ||
+                                         kc <= row0 + (e >> 1) * 8);
         s[n][e] = ok ? s[n][e] * sl2 : -INFINITY;
         mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
       }
@@ -420,6 +433,40 @@ attn_kernel_tc(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int D>
+__global__ void __launch_bounds__(kTcWarps * 32)
+attn_kernel_tc(const __nv_bfloat16* __restrict__ q,
+               const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v,
+               __nv_bfloat16* __restrict__ o, Strides qs, Strides ks,
+               Strides vs, Strides os, int H, int Sq, int Sk, int kv_len,
+               int causal, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  attn_tc_body<D, false>(q, k, v, o, qs, ks, vs, os, H, Sq, Sk, kv_len,
+                         causal, 0, scale, smem_raw);
+}
+
+// The prefix and device-length launch: the key length of batch row b is
+// kv_dev[b * kv_dev_stride] where kv_dev is given (stride 0: one length for
+// every row), read on the device so that a captured graph serves every
+// length; else the host kv_len.
+template <int D>
+__global__ void __launch_bounds__(kTcWarps * 32)
+attn_kernel_tc_masked(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      __nv_bfloat16* __restrict__ o, Strides qs, Strides ks,
+                      Strides vs, Strides os, int H, int Sq, int Sk,
+                      int kv_len, const int* __restrict__ kv_dev,
+                      int kv_dev_stride, int causal, int prefix,
+                      float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int b = blockIdx.y / H;
+  const int kvl = kv_dev ? max(kv_dev[b * kv_dev_stride], 1) : kv_len;
+  attn_tc_body<D, true>(q, k, v, o, qs, ks, vs, os, H, Sq, Sk, kvl, causal,
+                        prefix, scale, smem_raw);
+}
+
+template <int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
                       const long long* st, int B, int H, int Sq, int Sk,
                       int kv_len, int causal, float scale,
@@ -436,6 +483,171 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
       Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, H, Sq,
       Sk, kv_len, causal, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_tc_masked(const void* q, const void* k, const void* v,
+                             void* o, const long long* st, int B, int H,
+                             int Sq, int Sk, int kv_len, const int* kv_dev,
+                             int kv_dev_stride, int causal, int prefix,
+                             float scale, cudaStream_t stream) {
+  const size_t smem = attn_tc_smem_bytes<D>();
+  auto kernel = attn_kernel_tc_masked<D>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  constexpr int BQ = 16 * kTcWarps;
+  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
+  kernel<<<grid, kTcWarps * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
+      Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, H, Sq,
+      Sk, kv_len, kv_dev, kv_dev_stride, causal, prefix, scale);
+  return cudaGetLastError();
+}
+
+
+// ---- bf16, one query a row: the decode step over a KV cache ----
+//
+// softmax(q K^T * scale) V for a single query per (batch row, head) over the
+// first kv_len keys of a cache [B, H, S_max, D] read in place, the length
+// read on the device (kv_dev[b * kv_dev_stride]) where given, so that one
+// captured decode step serves every position. The tensor-core kernel would
+// use one of its 64 query rows here; this is a bandwidth kernel: each key
+// is D / 8 lanes reading one 16-byte chunk of its K row and of its V row,
+// a block of 128 threads holds 128 / (D / 8) such groups, one (b, h) a
+// block, and a round takes 4 G keys, key k0 + u G + g to group g (eight
+// 16-byte loads in flight a thread). Scores, the running max and sum (an
+// online softmax in log2 units) and the P V sums are fp32; P stays fp32.
+// The groups' partial results meet in shared memory at the end. Bound: the
+// K and V bytes, 2 kv_len D 2 B a (b, h), at 3.35 TB/s.
+constexpr int kDecThreads = 128;
+constexpr int kDecUnroll = 4;
+
+__device__ __forceinline__ void bf16x8_to_f(const uint4& u, float (&f)[8]) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(p[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kDecThreads)
+kv_decode_kernel(const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v,
+                 __nv_bfloat16* __restrict__ o, Strides qs, Strides ks,
+                 Strides vs, Strides os, int H, int Sk, int kv_len,
+                 const int* __restrict__ kv_dev, int kv_dev_stride,
+                 float scale) {
+  constexpr int L = D / 8;               // lanes a key (8 bf16 each)
+  constexpr int G = kDecThreads / L;     // key groups a block
+  __shared__ float sm_m[G], sm_l[G];
+  __shared__ float sm_acc[G][D];
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int tid = threadIdx.x, g = tid / L, c = tid % L;
+  const int kvl = min(Sk, kv_dev ? max(kv_dev[b * kv_dev_stride], 1)
+                                 : kv_len);
+  const __nv_bfloat16* kb = k + b * ks.b + h * ks.h + c * 8;
+  const __nv_bfloat16* vb = v + b * vs.b + h * vs.h + c * 8;
+
+  float qf[8];
+  bf16x8_to_f(*reinterpret_cast<const uint4*>(q + b * qs.b + h * qs.h + c * 8),
+              qf);
+  const float sl2 = scale * 1.4426950408889634f;   // scores in log2 units
+#pragma unroll
+  for (int i = 0; i < 8; ++i) qf[i] *= sl2;
+
+  float m = -INFINITY, l = 0.f, acc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+
+  // every thread of the block runs the same rounds (the shuffles below
+  // need whole warps); a key past kvl reads nothing and scores -inf
+  for (int k0 = 0; k0 < kvl; k0 += G * kDecUnroll) {
+    uint4 kr[kDecUnroll], vr[kDecUnroll];
+#pragma unroll
+    for (int u = 0; u < kDecUnroll; ++u) {
+      const int kc = k0 + u * G + g;
+      if (kc < kvl) {
+        kr[u] = *reinterpret_cast<const uint4*>(kb + kc * ks.s);
+        vr[u] = *reinterpret_cast<const uint4*>(vb + kc * vs.s);
+      } else {
+        kr[u] = make_uint4(0, 0, 0, 0);
+        vr[u] = make_uint4(0, 0, 0, 0);
+      }
+    }
+    float s[kDecUnroll];
+    float mx = m;
+#pragma unroll
+    for (int u = 0; u < kDecUnroll; ++u) {
+      float kf[8];
+      bf16x8_to_f(kr[u], kf);
+      float d = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) d = fmaf(qf[i], kf[i], d);
+#pragma unroll
+      for (int off = L / 2; off > 0; off >>= 1)
+        d += __shfl_xor_sync(0xffffffffu, d, off);
+      s[u] = k0 + u * G + g < kvl ? d : -INFINITY;
+      mx = fmaxf(mx, s[u]);
+    }
+    const float base = mx == -INFINITY ? 0.f : mx;   // no key yet
+    const float a = exp2f(m - base);     // 0 while m = -inf
+    l *= a;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] *= a;
+#pragma unroll
+    for (int u = 0; u < kDecUnroll; ++u) {
+      const float p = exp2f(s[u] - base);  // masked: exp2(-inf) = 0
+      l += p;
+      float vf[8];
+      bf16x8_to_f(vr[u], vf);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[i] = fmaf(p, vf[i], acc[i]);
+    }
+    m = mx;
+  }
+
+  if (c == 0) {
+    sm_m[g] = m;
+    sm_l[g] = l;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) sm_acc[g][c * 8 + i] = acc[i];
+  __syncthreads();
+  if (tid < D) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < G; ++j) mx = fmaxf(mx, sm_m[j]);
+    float sum = 0.f, out = 0.f;
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const float w = exp2f(sm_m[j] - mx);   // a group with no key: 0
+      sum = fmaf(w, sm_l[j], sum);
+      out = fmaf(w, sm_acc[j][tid], out);
+    }
+    o[b * os.b + h * os.h + tid] = __float2bfloat16(out / sum);
+  }
+}
+
+template <int D>
+cudaError_t launch_decode(const void* q, const void* k, const void* v,
+                          void* o, const long long* st, int B, int H, int Sk,
+                          int kv_len, const int* kv_dev, int kv_dev_stride,
+                          float scale, cudaStream_t stream) {
+  kv_decode_kernel<D><<<B * H, kDecThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
+      Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]}, H, Sk,
+      kv_len, kv_dev, kv_dev_stride, scale);
   return cudaGetLastError();
 }
 
@@ -457,5 +669,41 @@ extern "C" int ditto_attention(const void* q, const void* k, const void* v,
     return launch_tc<64>(q, k, v, o, strides, B, H, Sq, Sk, kv_len, causal, scale, s);
   if (dtype == kBFloat16 && D == 128)
     return launch_tc<128>(q, k, v, o, strides, B, H, Sq, Sk, kv_len, causal, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// bf16 only: the prefix mask (with causal) and the key length read from
+// kv_dev (null: the host kv_len)
+extern "C" int ditto_attention_masked(const void* q, const void* k,
+                                      const void* v, void* o,
+                                      const long long* strides, int B, int H,
+                                      int Sq, int Sk, int D, int kv_len,
+                                      const int* kv_dev, int kv_dev_stride,
+                                      int causal, int prefix, float scale,
+                                      void* stream) {
+  using namespace ditto;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return launch_tc_masked<64>(q, k, v, o, strides, B, H, Sq, Sk, kv_len,
+                                kv_dev, kv_dev_stride, causal, prefix, scale, s);
+  if (D == 128)
+    return launch_tc_masked<128>(q, k, v, o, strides, B, H, Sq, Sk, kv_len,
+                                 kv_dev, kv_dev_stride, causal, prefix, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// bf16 only: one query a (batch row, head) over the first kv_len keys
+extern "C" int ditto_kv_decode(const void* q, const void* k, const void* v,
+                               void* o, const long long* strides, int B, int H,
+                               int Sk, int D, int kv_len, const int* kv_dev,
+                               int kv_dev_stride, float scale, void* stream) {
+  using namespace ditto;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return launch_decode<64>(q, k, v, o, strides, B, H, Sk, kv_len, kv_dev,
+                             kv_dev_stride, scale, s);
+  if (D == 128)
+    return launch_decode<128>(q, k, v, o, strides, B, H, Sk, kv_len, kv_dev,
+                              kv_dev_stride, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

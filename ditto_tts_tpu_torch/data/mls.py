@@ -66,8 +66,16 @@ class MLSDataset:
                 self.entries = json.load(f)
         else:
             self.entries = self._build_manifest()
-            with open(cache, "w", encoding="utf-8") as f:
-                json.dump(self.entries, f)
+            # written whole under another name, then renamed: a process that
+            # opens the cache (another rank) never finds it half written
+            tmp = f"{cache}.{os.getpid()}.tmp"
+            try:
+                with open(tmp, "w", encoding="utf-8") as f:
+                    json.dump(self.entries, f)
+                os.replace(tmp, cache)
+            finally:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
 
         self.entries = self.entries[shard_index::num_shards]
         if nb_samples is not None:

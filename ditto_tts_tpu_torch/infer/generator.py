@@ -30,6 +30,10 @@ scaled back by the prompt's gain. ``params`` is a ``params.F5Params``;
 ``text_ids`` are F5's character ids (-1 pads); prompts share one length
 (a padding mask, where given, marks every sample valid).
 
+Given a ``VallePipelineConfig``, the same two entry points serve VALL-E
+(``infer/valle.py``: EnCodec encode, the AR over a KV cache with a graphed
+decode step, the NAR stages, EnCodec decode).
+
 Entry points run on ``cuda`` unless built with ``device="cpu"``; inputs are
 moved to that device, and the parameters must already be there.
 
@@ -56,7 +60,7 @@ from .. import resolve_device
 from ..codec import encodec as codec_mod
 from ..codec import rvq as rvq_mod
 from ..config import (ByT5Config, F5PipelineConfig, PipelineConfig,
-                      byt5_small_config)
+                      VallePipelineConfig, byt5_small_config)
 from ..diffusion.flow import euler_sample, sway_times
 from ..diffusion.sampler import ddim_sample, ddpm_sample, respaced_timesteps
 from ..diffusion.schedule import NoiseSchedule, q_sample
@@ -70,6 +74,7 @@ from ..params import GeneratorParams
 from ..text import gpt2 as gpt2_mod
 from ..utils.profiling import span
 from . import step_graph
+from .valle import build_valle_synthesize, valle_stage_fns
 
 
 def encode_prompt_latents(params: GeneratorParams, cfg: PipelineConfig,
@@ -244,8 +249,12 @@ def build_stage_fns(cfg: PipelineConfig, *, num_steps: Optional[int] = None,
     ``F5PipelineConfig`` gives F5's stages (``f5_stage_fns``), and takes
     none of the DiTTo sampler's options."""
     if isinstance(cfg, F5PipelineConfig):
-        _f5_takes_no_ditto_options(sampler_kind, cond_by_audio, ref_compat)
+        _takes_no_ditto_options(sampler_kind, cond_by_audio, ref_compat)
         return f5_stage_fns(cfg, num_steps=num_steps)
+    if isinstance(cfg, VallePipelineConfig):
+        _takes_no_ditto_options(sampler_kind, cond_by_audio, ref_compat,
+                                num_steps)
+        return valle_stage_fns(cfg)
     kind = cfg.sampler.kind if sampler_kind is None else sampler_kind
     opts = dict(num_steps=num_steps, cond_by_audio=cond_by_audio,
                 compat=ref_compat)
@@ -310,8 +319,12 @@ def build_synthesize_pipelined(cfg: PipelineConfig, *,
     none of the DiTTo sampler's options."""
     dev = resolve_device(device)
     if isinstance(cfg, F5PipelineConfig):
-        _f5_takes_no_ditto_options(sampler_kind, cond_by_audio, ref_compat)
+        _takes_no_ditto_options(sampler_kind, cond_by_audio, ref_compat)
         return _f5_synthesize(cfg, dev, num_steps)
+    if isinstance(cfg, VallePipelineConfig):
+        _takes_no_ditto_options(sampler_kind, cond_by_audio, ref_compat,
+                                num_steps)
+        return build_valle_synthesize(cfg, dev)
     stages = build_stage_fns(cfg, num_steps=num_steps,
                              sampler_kind=sampler_kind,
                              cond_by_audio=cond_by_audio,
@@ -488,16 +501,19 @@ def build_synthesize_with_slp(cfg: PipelineConfig, *,
 # the F5-TTS chain (F5-TTS infer/utils_infer.py:infer_batch_process)
 # ---------------------------------------------------------------------------
 
-def _f5_takes_no_ditto_options(sampler_kind, cond_by_audio, ref_compat):
-    """Raise where a DiTTo-only option is given with an F5 configuration:
-    F5's sampler is its configuration's guided Euler flow, whatever they
+def _takes_no_ditto_options(sampler_kind, cond_by_audio, ref_compat,
+                            num_steps=None):
+    """Raise where a DiTTo-only option is given with an F5 or VALL-E
+    configuration: F5's sampler is its configuration's guided Euler flow,
+    VALL-E's its decode (which has no ``num_steps`` either), whatever they
     would say."""
     given = [name for name, v in (("sampler_kind", sampler_kind is not None),
                                   ("cond_by_audio", cond_by_audio),
-                                  ("ref_compat", bool(ref_compat))) if v]
+                                  ("ref_compat", bool(ref_compat)),
+                                  ("num_steps", num_steps is not None)) if v]
     if given:
         raise ValueError(f"{', '.join(given)}: DiTTo sampler options, which "
-                         "an F5PipelineConfig does not take")
+                         "an F5 or VALL-E configuration does not take")
 
 
 def _f5_gain(cfg: F5PipelineConfig, audio):

@@ -31,6 +31,14 @@ returns its result for its first call when that call passes ``x`` itself.
 The last graph captured on a device is kept, never replayed, so that the
 pool always has a graph holding it between requests.
 
+``capture_step(step, device, key)`` graphs a step that takes no input and
+returns nothing: it reads and writes tensors it closes over in place (the
+autoregressive decode step: the last token, the position, the cache, the
+sampler's offset), so one graph serves every replay. A ``key`` not run
+yet is first run eagerly on the capture stream, as above; that run is a
+step, so ``capture_step`` returns whether it ran one, and the caller
+replays one step fewer.
+
 Launch counts (``kernels.launches``): the wrappers count at Python call
 time, so the capture would count one forward and a replay nothing.
 ``capture`` takes back what the capture counted and ``model_fn`` adds it
@@ -60,6 +68,31 @@ class _Device:
         self.last = None
 
 
+def _device(device: torch.device) -> "_Device":
+    dev = _devices.get(device.index)
+    if dev is None:
+        dev = _devices[device.index] = _Device(device)
+    return dev
+
+
+def _captured(dev: "_Device", fn: Callable):
+    """(graph of ``fn()`` captured on ``dev``'s stream into its pool, the
+    launch counts a replay adds); the capture's own counts taken back."""
+    graph = torch.cuda.CUDAGraph()
+    counted = dict(kernels.launches)
+    try:
+        graph.capture_begin(pool=dev.pool)
+        try:
+            out = fn()
+        finally:
+            graph.capture_end()
+    finally:
+        per_replay = {k: n - counted[k] for k, n in kernels.launches.items()
+                      if n != counted[k]}
+        kernels.launches.update(counted)
+    return graph, out, per_replay
+
+
 def engages(x) -> bool:
     """Whether a step on ``x`` is captured and replayed: ``x`` on a CUDA
     device, grad mode off and no capture under way on the current
@@ -74,9 +107,7 @@ def capture(forward: Callable, x: torch.Tensor, t: torch.Tensor,
     the module docstring). ``x`` and ``t`` are the first step's inputs;
     their shapes, types and device are every step's."""
     with _lock:
-        dev = _devices.get(x.device.index)
-        if dev is None:
-            dev = _devices[x.device.index] = _Device(x.device)
+        dev = _device(x.device)
         main = torch.cuda.current_stream(x.device)
         x_in, t_in = torch.empty_like(x), torch.empty_like(t)
         key = (key, tuple(x.shape), x.dtype, tuple(t.shape), t.dtype)
@@ -86,19 +117,8 @@ def capture(forward: Callable, x: torch.Tensor, t: torch.Tensor,
             if key not in dev.warm:
                 first = forward(x, t)
                 dev.warm.add(key)
-            graph = torch.cuda.CUDAGraph()
-            counted = dict(kernels.launches)
-            try:
-                graph.capture_begin(pool=dev.pool)
-                try:
-                    out = forward(x_in, t_in)
-                finally:
-                    graph.capture_end()
-            finally:
-                per_replay = {k: n - counted[k]
-                              for k, n in kernels.launches.items()
-                              if n != counted[k]}
-                kernels.launches.update(counted)
+            graph, out, per_replay = _captured(
+                dev, lambda: forward(x_in, t_in))
         main.wait_stream(dev.stream)
         dev.last = graph
 
@@ -116,3 +136,30 @@ def capture(forward: Callable, x: torch.Tensor, t: torch.Tensor,
         return out
 
     return model_fn
+
+
+def capture_step(step: Callable[[], None], device: torch.device,
+                 key: Hashable):
+    """(whether a step ran eagerly, ``replay()``): ``step()`` as one CUDA
+    graph on ``device`` (see the module docstring); ``replay()`` runs one
+    step on the current stream."""
+    with _lock:
+        dev = _device(device)
+        main = torch.cuda.current_stream(device)
+        ran = False
+        dev.stream.wait_stream(main)
+        with torch.cuda.stream(dev.stream):
+            if key not in dev.warm:
+                step()
+                ran = True
+                dev.warm.add(key)
+            graph, _, per_replay = _captured(dev, step)
+        main.wait_stream(dev.stream)
+        dev.last = graph
+
+    def replay():
+        graph.replay()
+        for k, n in per_replay.items():
+            kernels.launches[k] += n
+
+    return ran, replay

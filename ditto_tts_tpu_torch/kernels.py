@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches: Dict[str, int] = {name: 0 for name in KERNELS}
+# A's decode launch (csrc/attention.cu) is counted apart from A
+launches: Dict[str, int] = {name: 0 for name in KERNELS + ("kv_decode",)}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

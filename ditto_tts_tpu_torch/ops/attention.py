@@ -15,6 +15,16 @@ width, and the padded output columns are dropped), as JAX's
 Pallas (heads wider than 128, an additive bias: the SLP decoder and ByT5)
 calls ``attention_plain`` directly, on any device.
 
+An autoregressive model decoding over a KV cache (VALL-E,
+``infer/kv_cache.py``) takes two more options, bf16 on the card: a
+``prefix`` (with ``causal``, keys before it are visible to every row: the
+prefix-LM mask) and ``kv_lens``, the key length as an int32 tensor on the
+device, one or one a batch row, which a captured graph reads at every
+replay. A call with ``kv_lens`` and one query a row that is not causal is
+the decode launch (``kv_decode_kernel``, counted as ``kv_decode``); any
+other call with either option is A's masked launch. Calls that give
+neither launch A exactly as before.
+
 Training differentiates through ``attention``: where grad mode is on and an
 operand requires grad, it runs ``_Attention``, an ``autograd.Function``
 whose forward is the same call (kernel A on the card) and whose backward
@@ -43,13 +53,17 @@ def _acc_dtype(q):
 
 def attention_plain(q, k, v, *, causal: bool = False,
                     sm_scale: Optional[float] = None,
-                    kv_len: Optional[int] = None, bias=None):
+                    kv_len: Optional[int] = None, bias=None,
+                    prefix: int = 0, kv_lens=None):
     """softmax(Q K^T * scale + bias) V with fp32 scores and softmax; the
     probabilities are cast to v's type before the fp32-summed PV product
     (the JAX ``sdpa_reference`` and Pallas kernels do the same). Keys at
-    index >= ``kv_len`` are masked. ``bias`` (fp32, broadcast to
-    [B, H, Sq, Sk]) is additive; kernel A takes none, so a call with a
-    bias is always this math, as in JAX (``ops/attention.py:300``)."""
+    index >= ``kv_len`` are masked, or, where ``kv_lens`` (an int tensor
+    of one length or one a batch row) is given, >= its length. Causal
+    masks the keys after the row but the first ``prefix``. ``bias`` (fp32,
+    broadcast to [B, H, Sq, Sk]) is additive; kernel A takes none, so a
+    call with a bias is always this math, as in JAX
+    (``ops/attention.py:300``)."""
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
     acc = _acc_dtype(q)
@@ -58,11 +72,15 @@ def attention_plain(q, k, v, *, causal: bool = False,
         scores = scores + bias
     sq, sk = scores.shape[-2:]
     mask = None
-    if kv_len is not None and kv_len < sk:
+    if kv_lens is not None:
+        mask = torch.arange(sk, device=q.device) \
+            < kv_lens.reshape(-1, 1, 1, 1).to(q.device)
+    elif kv_len is not None and kv_len < sk:
         mask = torch.arange(sk, device=q.device)[None, :] < kv_len
     if causal:
-        cm = (torch.arange(sk, device=q.device)[None, :]
-              <= torch.arange(sq, device=q.device)[:, None])
+        kc = torch.arange(sk, device=q.device)[None, :]
+        cm = (kc <= torch.arange(sq, device=q.device)[:, None]) | \
+            (kc < prefix)
         mask = cm if mask is None else mask & cm
     if mask is not None:
         scores = scores.masked_fill(~mask, float("-inf"))
@@ -72,17 +90,39 @@ def attention_plain(q, k, v, *, causal: bool = False,
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)] \
     + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_MASKED_ARGTYPES = [ctypes.c_void_p] * 4 \
+    + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 6 \
+    + [ctypes.c_void_p] + [ctypes.c_int] * 3 \
+    + [ctypes.c_float, ctypes.c_void_p]
+_DECODE_ARGTYPES = [ctypes.c_void_p] * 4 \
+    + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 5 \
+    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+
+
+def _device_lengths(kv_lens, b: int, dev):
+    """(pointer, stride over the batch rows) of an int32 length tensor of
+    one length or one a row, on ``dev``."""
+    if kv_lens.dtype != torch.int32 or kv_lens.device != dev \
+            or kv_lens.numel() not in (1, b) or not kv_lens.is_contiguous():
+        raise ValueError(f"attention: kv_lens must be a contiguous int32 "
+                         f"tensor of 1 or {b} lengths on {dev}, got "
+                         f"{kv_lens.dtype} {tuple(kv_lens.shape)} on "
+                         f"{kv_lens.device}")
+    return kv_lens.data_ptr(), 0 if kv_lens.numel() == 1 else 1
 
 
 def attention_cuda(q, k, v, *, causal: bool = False,
                    sm_scale: Optional[float] = None,
-                   kv_len: Optional[int] = None):
+                   kv_len: Optional[int] = None, prefix: int = 0,
+                   kv_lens=None):
     """Kernel A. q [B, H, Sq, D], k/v [B, H, Sk, D] on one CUDA device,
     fp32 or bf16, D in {64, 128}, any strides over (b, h, s) with a unit
     stride over d; in bf16 (the tensor-core kernel, fed by 16-byte
     asynchronous copies) every operand 16-byte aligned with (b, h, s)
     strides that are multiples of 8. Returns [B, H, Sq, D] as a view of a
-    [B, Sq, H, D] buffer, so merging heads after it is free."""
+    [B, Sq, H, D] buffer, so merging heads after it is free. ``prefix``
+    and ``kv_lens`` (see the module docstring) take bf16 operands; with
+    ``kv_lens`` the host ``kv_len`` is not read."""
     kernels.require_cuda("attention", q, k, v)
     if q.dtype not in kernels.DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
@@ -112,6 +152,9 @@ def attention_cuda(q, k, v, *, causal: bool = False,
     o = out.transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(*[
         s for t in (q, k, v, o) for s in t.stride()[:3]])
+    if prefix or kv_lens is not None:
+        return _masked(q, k, v, o, strides, causal, prefix, kv_lens, kvl,
+                       scale)
     fn = kernels.function("attention", "ditto_attention", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), strides,
              b, h, sq, sk, d, kvl, int(causal), scale,
@@ -121,10 +164,40 @@ def attention_cuda(q, k, v, *, causal: bool = False,
     return o
 
 
+def _masked(q, k, v, o, strides, causal, prefix, kv_lens, kvl, scale):
+    """A's masked launch, or the decode launch (``kv_lens`` given, one
+    query, not causal), into o."""
+    if q.dtype != torch.bfloat16:
+        raise TypeError("attention: prefix and kv_lens take bf16 operands")
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    if not 0 <= prefix <= sk:
+        raise ValueError(f"attention: prefix {prefix} outside [0, {sk}]")
+    ptr, stride = (None, 0) if kv_lens is None else _device_lengths(
+        kv_lens, b, q.device)
+    stream = kernels.stream_ptr(q)
+    if kv_lens is not None and sq == 1 and not causal:
+        fn = kernels.function("attention", "ditto_kv_decode",
+                              _DECODE_ARGTYPES)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 strides, b, h, sk, d, kvl, ptr, stride, scale, stream)
+        kernels.check(err, "attention (decode)")
+        kernels.launches["kv_decode"] += 1
+        return o
+    fn = kernels.function("attention", "ditto_attention_masked",
+                          _MASKED_ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), strides,
+             b, h, sq, sk, d, kvl, ptr, stride, int(causal), int(prefix),
+             scale, stream)
+    kernels.check(err, "attention (masked)")
+    kernels.launches["attention"] += 1
+    return o
+
+
 KERNEL_HEAD_DIMS = (64, 128)
 
 
-def head_padded(fn, q, k, v, causal, sm_scale, kv_len):
+def head_padded(fn, q, k, v, causal, sm_scale, kv_len, **masks):
     """``fn`` (kernel A's wrapper) on q, k and v zero-padded along the head
     dim to the next of ``KERNEL_HEAD_DIMS``, at the unpadded width's
     scale; the output cut back. Zero columns add nothing to Q K^T, and V's
@@ -133,19 +206,20 @@ def head_padded(fn, q, k, v, causal, sm_scale, kv_len):
     dp = next(n for n in KERNEL_HEAD_DIMS if n >= d)
     scale = 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
     q, k, v = (torch.nn.functional.pad(t, (0, dp - d)) for t in (q, k, v))
-    return fn(q, k, v, causal=causal, sm_scale=scale, kv_len=kv_len)[
-        ..., :d]
+    return fn(q, k, v, causal=causal, sm_scale=scale, kv_len=kv_len,
+              **masks)[..., :d]
 
 
-def _forward(q, k, v, causal, sm_scale, kv_len):
+def _forward(q, k, v, causal, sm_scale, kv_len, **masks):
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, sm_scale=sm_scale,
-                               kv_len=kv_len)
+                               kv_len=kv_len, **masks)
     if q.shape[-1] < KERNEL_HEAD_DIMS[-1] and \
             q.shape[-1] not in KERNEL_HEAD_DIMS:
-        return head_padded(attention_cuda, q, k, v, causal, sm_scale, kv_len)
+        return head_padded(attention_cuda, q, k, v, causal, sm_scale, kv_len,
+                           **masks)
     return attention_cuda(q, k, v, causal=causal, sm_scale=sm_scale,
-                          kv_len=kv_len)
+                          kv_len=kv_len, **masks)
 
 
 def attention_backward(q, k, v, g, *, causal: bool = False,
@@ -200,11 +274,18 @@ class _Attention(torch.autograd.Function):
 
 def attention(q, k, v, *, causal: bool = False,
               sm_scale: Optional[float] = None,
-              kv_len: Optional[int] = None):
+              kv_len: Optional[int] = None, prefix: int = 0, kv_lens=None):
     """Multi-head attention over [B, H, S, D]: the plain version for a CPU
     tensor, kernel A for a CUDA tensor; differentiable (``_Attention``)
-    where grad mode is on and an operand requires grad."""
+    where grad mode is on and an operand requires grad (``prefix`` and
+    ``kv_lens``, see the module docstring, serve inference only)."""
+    masks = {}
+    if prefix or kv_lens is not None:
+        masks = dict(prefix=prefix, kv_lens=kv_lens)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        if masks:
+            raise ValueError("attention: prefix and kv_lens have no "
+                             "backward")
         return _Attention.apply(q, k, v, causal, sm_scale, kv_len)
-    return _forward(q, k, v, causal, sm_scale, kv_len)
+    return _forward(q, k, v, causal, sm_scale, kv_len, **masks)

@@ -33,7 +33,8 @@ import torch
 from . import resolve_device
 from .config import (ByT5Config, CodecConfig, DiTConfig, F5DiTConfig,
                      F5PipelineConfig, GPT2Config, NACConfig, PipelineConfig,
-                     SLPConfig, VocoderConfig, byt5_small_config)
+                     SLPConfig, ValleModelConfig, VallePipelineConfig,
+                     VocoderConfig, byt5_small_config)
 
 FIELDS = ("dit", "codec", "gpt2", "embedding_head", "vector_quantizer",
           "vocoder")
@@ -421,6 +422,68 @@ def init_f5_params(cfg: F5PipelineConfig, seed: int = 0) -> F5Params:
     """Random CPU fp32 F5 trees (``f5_spec``) from one numpy seed."""
     return F5Params(**tree_map(torch.from_numpy,
                                fill_spec(f5_spec(cfg), seed)))
+
+
+@dataclasses.dataclass
+class ValleParams:
+    """The VALL-E chain's trees: the AR and NAR decoders
+    (``valle_spec``) and EnCodec (``_codec_spec``)."""
+
+    ar: Dict
+    nar: Dict
+    codec: Dict
+
+
+def _valle_layer(d: int, f: int, norm):
+    """One pre-LN layer: biased attention projections, a ReLU
+    feed-forward; ``norm`` the spec of each of its two norms."""
+    b = 1.0 / math.sqrt(d)
+    return {"norm1": norm, "norm2": norm,
+            "attn": {"in_proj": {"weight": _u((3 * d, d),
+                                              math.sqrt(6.0 / (4 * d))),
+                                 "bias": _u((3 * d,), b)},
+                     "out_proj": _linear(d, d)},
+            "ff1": _linear(d, f), "ff2": _linear(f, d)}
+
+
+def valle_model_spec(cfg: ValleModelConfig):
+    """Leaf specs of VALL-E's AR and NAR decoders (``models/valle.py``), at
+    PyTorch's default inits (``nn.Embedding`` N(0, 1), ``nn.Linear``
+    uniform over the fan-in bound, the attention's in-projection Xavier
+    uniform) but for its bias, which PyTorch zeroes and which is drawn
+    like a Linear's so that it acts; the PE scales alpha 1, LayerNorms
+    1 and 0. The AR's audio table and head take EOS (``codebook_size +
+    1`` ids); the NAR's tables and its 7 heads take the codes; its
+    LayerNorms are adaptive: (w, b) = Linear(stage embedding)."""
+    d, f, n = cfg.d_model, cfg.ffn_dim, cfg.codebook_size
+    b = 1.0 / math.sqrt(d)
+    ar = {"text_embed": {"weight": _n((cfg.num_phonemes, d), 1.0)},
+          "audio_embed": {"weight": _n((n + 1, d), 1.0)},
+          "text_alpha": _ones((1,)), "audio_alpha": _ones((1,)),
+          "layers": [_valle_layer(d, f, _layer_norm(d))] * cfg.num_layers,
+          "norm": _layer_norm(d),
+          "head": {"weight": _u((n + 1, d), b)}}
+    ada = _linear(d, 2 * d)
+    nar = {"text_embed": {"weight": _n((cfg.num_phonemes, d), 1.0)},
+           "audio_embeds": [{"weight": _n((n, d), 1.0)}]
+           * cfg.num_codebooks,
+           "text_alpha": _ones((1,)), "audio_alpha": _ones((1,)),
+           "stage_embed": {"weight": _n((cfg.num_codebooks - 1, d), 1.0)},
+           "layers": [_valle_layer(d, f, ada)] * cfg.num_layers,
+           "norm": ada,
+           "heads": [{"weight": _u((n, d), b)}] * (cfg.num_codebooks - 1)}
+    return {"ar": ar, "nar": nar}
+
+
+def valle_spec(cfg: VallePipelineConfig):
+    """Leaf specs of every tree the VALL-E chain reads."""
+    return {**valle_model_spec(cfg.model), "codec": _codec_spec(cfg.codec)}
+
+
+def init_valle_params(cfg: VallePipelineConfig, seed: int = 0) -> ValleParams:
+    """Random CPU fp32 VALL-E trees (``valle_spec``) from one numpy seed."""
+    return ValleParams(**tree_map(torch.from_numpy,
+                                  fill_spec(valle_spec(cfg), seed)))
 
 
 def byt5_spec(cfg: ByT5Config):

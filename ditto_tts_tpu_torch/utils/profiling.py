@@ -10,7 +10,10 @@ serving chains record ``request`` (the root: batch, frames), ``encode``,
 "eager"; glue, "fused" or "eager", which the DiT forward adds) over ``sampler.capture`` (the capture of the step's CUDA graph,
 where there is one) and one ``sampler.step`` a step (step), ``vq``,
 ``codec_decode``, ``mel`` and ``vocoder`` (the F5 chain: ``request`` over
-``mel``, ``text_encode``, ``sampler`` and ``vocoder``); the train steps
+``mel``, ``text_encode``, ``sampler`` and ``vocoder``; the VALL-E chain:
+``request`` over ``encode``, ``ar`` (graph) with ``ar.prefill``,
+``ar.capture`` and one ``ar.step`` a decoded token (step), ``nar`` with one
+``nar.stage`` a stage (stage, 2..8), and ``codec_decode``); the train steps
 ``train.step`` over ``train.place``, ``train.encode`` (DiTTo),
 ``train.forward``, ``train.backward`` and ``train.optimizer``, with a
 ``train.allreduce`` around each mean over a data group of several ranks.
@@ -26,7 +29,10 @@ its attrs; while a ``torch.profiler`` records, it also opens a
 ``record_function`` range of its name, which the Chrome trace shows.
 ``annotate(name, **attrs)`` adds attrs to the innermost open span of
 that name, for what a callee decides after its caller opened the span.
-Spans stay in memory: ``recording().spans()`` returns them as dicts.
+``count(name, value)`` adds to a counter of the request whose span is
+open (VALL-E's ``kv_cache_bytes``, the cache allocated, and
+``ar_tokens``, the tokens decoded). Spans and counters stay in memory:
+``recording().spans()`` and ``.counters()`` return them as dicts.
 Each thread keeps its own stack of open spans; a span opened on a thread
 with none open is a root.
 
@@ -76,6 +82,14 @@ def span(name: str, **attrs):
     return _Span(_recorder, name, attrs)
 
 
+def count(name: str, value) -> None:
+    """Adds ``value`` to counter ``name`` of the request whose span is open
+    on this thread (None outside every span); nothing while recording is
+    off."""
+    if _recorder is not None:
+        _recorder._count(name, value)
+
+
 def annotate(name: str, **attrs):
     """Adds ``attrs`` to the innermost span called ``name`` that is open on
     this thread; nothing while recording is off or no such span is open."""
@@ -92,6 +106,20 @@ class Recorder:
         self._lock = threading.Lock()
         self._local = threading.local()
         self._requests = 0
+        self._counters: Dict[tuple, float] = {}
+
+    def _count(self, name: str, value):
+        stack = getattr(self._local, "stack", None)
+        with self._lock:
+            request = self._spans[stack[-1]][4] if stack else None
+            key = (name, request)
+            self._counters[key] = self._counters.get(key, 0) + value
+
+    def counters(self) -> List[Dict[str, Any]]:
+        """Every counter as ``{"name", "request", "value"}``."""
+        with self._lock:
+            return [{"name": n, "request": r, "value": v}
+                    for (n, r), v in self._counters.items()]
 
     def _open(self, name: str, attrs: Dict[str, Any]) -> int:
         stack = getattr(self._local, "stack", None)

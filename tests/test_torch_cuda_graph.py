@@ -9,7 +9,9 @@ eager loop counts; two parameter trees of one shape each give their own
 output; B=1, B=8, B=1 in turns each match their eager result; the served
 request equals itself with the step eager; the ``sampler`` span says
 ``graph="captured"`` over one ``sampler.capture``; under grad the step
-stays eager. The DiT's glue runs on kernel E (``models/dit.py:glue_blocks``)
+stays eager. VALL-E's AR decode step, graphed once a request and
+replayed for every token, gives the eager loop's tokens and logits bit for
+bit, a shape's first request and the next alike. The DiT's glue runs on kernel E (``models/dit.py:glue_blocks``)
 wherever the step is graphed, so these hold E's graphed replays to its
 eager calls; beside them, E's forward against the eager ops' forward
 (``dit_block``): relative RMS at most 1e-2 in bf16 (a one-ulp difference
@@ -161,7 +163,7 @@ def test_launches_are_counted_per_replay(dev):
         torch.cuda.synchronize()
         assert kernels.launches == {"attention": 1200, "conv1d": 0,
                                     "act_conv": 0, "snake": 0,
-                                    "dit_glue": 3650}
+                                    "dit_glue": 3650, "kv_decode": 0}
     kernels.reset_launches()
     _eager(tree, cfg, x, emb, 8)
     assert kernels.launches["attention"] == 1200
@@ -232,7 +234,7 @@ def test_served_request_equals_itself_with_the_step_eager(dev, monkeypatch):
     text = rng.integers(0, 50257, (1, 64))
     serve = gen_mod.build_synthesize_pipelined(cfg)
     want_launches = {"attention": 1200, "conv1d": 90, "act_conv": 54,
-                     "snake": 55, "dit_glue": 3650}
+                     "snake": 55, "dit_glue": 3650, "kv_decode": 0}
 
     def request():
         kernels.reset_launches()
@@ -320,3 +322,47 @@ def test_under_grad_with_parameters_that_require_it_the_glue_is_eager(
     assert attrs["graph"] == "eager" and attrs["glue"] == "eager"
     assert kernels.launches["dit_glue"] == 0
     assert _same(got.detach(), want)
+
+
+def test_replayed_valle_decode_is_the_eager_loop_bit_for_bit(dev):
+    """VALL-E's AR over a KV cache at heads of 64 (2 layers of 256, 60
+    tokens a row): the replayed decode step's tokens and logits equal the
+    eager loop's, for a shape's first request (step 0 eager) and the next
+    (every step replayed); the ``ar`` span says ``graph="captured"``."""
+    from ditto_tts_tpu_torch.config import (CodecConfig, ValleModelConfig,
+                                            VallePipelineConfig,
+                                            ValleSamplerConfig)
+    cfg = VallePipelineConfig(
+        model=ValleModelConfig(d_model=256, nhead=4, num_layers=2,
+                               ffn_dim=512, num_phonemes=40,
+                               codebook_size=64),
+        sampler=ValleSamplerConfig(generated_frames=60, top_k=8),
+        codec=CodecConfig(num_filters=4, dimension=16, codebook_size=64,
+                          num_codebooks_used=8))
+    params = tparams.init_valle_params(cfg, 2)
+    params = tparams.ValleParams(**{
+        f: tparams.tree_map(lambda t: t.to(dev), getattr(params, f))
+        for f in ("ar", "nar", "codec")})
+    st = gen_mod.build_stage_fns(cfg)
+    g = torch.Generator(device=dev).manual_seed(3)
+    text = torch.randint(0, 40, (3, 9), generator=g, device=dev)
+    codes = torch.randint(0, 64, (3, 8, 17), generator=g, device=dev)
+
+    def ar(seed, graphed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        if graphed:
+            with torch.inference_mode():
+                return st["ar"](params, text, codes, gen, logits=True)
+        return st["ar"](params, text, codes, gen, logits=True)
+
+    for seed in (5, 6):
+        with recording() as rec:
+            tok, lg = ar(seed, True)
+        spans = rec.spans()
+        assert [s["attrs"]["graph"] for s in spans
+                if s["name"] == "ar"] == ["captured"]
+        assert sum(s["name"] == "ar.capture" for s in spans) == 1
+        with torch.enable_grad():
+            tok_e, lg_e = ar(seed, False)
+        assert torch.equal(tok, tok_e) and torch.equal(lg, lg_e)
+        assert bool((tok < 64).all())

@@ -20,6 +20,12 @@ on either side of those tiles and runs. Kernel A's gradient (its
 against autograd through the plain version at the same tile edges; B, C
 and D, which have no backward, refuse an input that requires grad.
 
+Kernel A's two launches for a KV cache (VALL-E) are held to the plain
+version with the same masks: the prefix-causal mask at either side of the
+64-key tiles, the key length read on the device (one, or one a row), and
+the decode launch over a cache of 1,103 positions at heads of 64 and 128;
+the unmasked launch gives the masked launch's bits at prefix 0.
+
 Kernel D's polyphase mode is held to
 ``polyphase_anti_aliased_activation`` with ``snake_beta`` run as stock
 ops on the card, which it follows op for op (only the card's fused
@@ -145,6 +151,84 @@ def test_attention_kernel_fp32_alike_values(gen, sk, d):
     _check(attention_cuda(q, k, v),
            attention_plain(q.double(), k.double(), v.double()),
            torch.float32)
+
+
+def _bf16(gen, *shape):
+    return _rn(gen, *shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("sq,prefix", [(70, 0), (70, 3), (70, 64), (70, 65),
+                                       (200, 128), (353, 128), (129, 129)])
+def test_attention_kernel_prefix(gen, sq, prefix):
+    """A's masked launch with a prefix: rows see the first ``prefix`` keys
+    and the keys up to themselves (VALL-E's AR prefill)."""
+    q = _bf16(gen, 2, sq, 3, 64).transpose(1, 2)
+    k, v = (_bf16(gen, 2, 3, sq + 40, 64) for _ in range(2))
+    before = dict(kernels.launches)
+    got = attention(q, k, v, causal=True, prefix=prefix, kv_len=sq)
+    assert kernels.launches["attention"] == before["attention"] + 1
+    assert kernels.launches["kv_decode"] == before["kv_decode"]
+    _check(got, attention_plain(q, k, v, causal=True, prefix=prefix,
+                                kv_len=sq), torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("lengths", [[70], [1, 64, 65], [200, 3, 129]])
+def test_attention_kernel_device_lengths(gen, causal, lengths):
+    """A's masked launch with the key length read on the device, one or
+    one a batch row; the host kv_len is not read."""
+    b = 3
+    q = _bf16(gen, b, 2, 200, 64)
+    k, v = (_bf16(gen, b, 2, 200, 64) for _ in range(2))
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    got = attention(q, k, v, causal=causal, kv_lens=lens, kv_len=1)
+    _check(got, attention_plain(q, k, v, causal=causal, kv_lens=lens),
+           torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("lengths", [[1], [17], [1103], [1, 63, 64, 65],
+                                     [700, 1103, 2, 333]])
+def test_kv_decode_kernel(gen, d, lengths):
+    """The decode launch: one query a (row, head) over the first kv_len
+    keys of a cache [B, H, 1103, d] read in place, the length from the
+    device; q a view of a packed [B, 1, 3, H, d] projection."""
+    b = 4
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    qkv = _bf16(gen, b, 1, 3, 16, d)
+    q = qkv[:, :, 0].transpose(1, 2)
+    k, v = (_bf16(gen, b, 16, 1103, d) for _ in range(2))
+    before = dict(kernels.launches)
+    got = attention(q, k, v, kv_lens=lens)
+    assert kernels.launches["kv_decode"] == before["kv_decode"] + 1
+    assert kernels.launches["attention"] == before["attention"]
+    assert got.shape == (b, 16, 1, d)
+    _check(got, attention_plain(q, k, v, kv_lens=lens), torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,sk,kv_len", [(15, 63, 63), (64, 65, 65),
+                                          (750, 750, 750), (200, 300, 250)])
+def test_attention_unmasked_launch_equals_the_masked_one(gen, causal, sq, sk,
+                                                         kv_len):
+    """Calls without the new options launch A's unmasked kernel, whose
+    body the masked launch shares: at prefix 0 and the same length read
+    on the device, the two give the same bits."""
+    q = _bf16(gen, 2, sq, 3, 64).transpose(1, 2)
+    k, v = (_bf16(gen, 2, 3, sk, 64) for _ in range(2))
+    old = attention_cuda(q, k, v, causal=causal, kv_len=kv_len)
+    lens = torch.tensor([kv_len], dtype=torch.int32, device="cuda")
+    assert torch.equal(old, attention_cuda(q, k, v, causal=causal,
+                                           kv_lens=lens))
+
+
+def test_masked_options_refuse_fp32_and_grad(gen):
+    q, k, v = (_rn(gen, 1, 2, 8, 64) for _ in range(3))
+    with pytest.raises(TypeError, match="bf16"):
+        attention_cuda(q, k, v, causal=True, prefix=2)
+    qb = q.to(torch.bfloat16).requires_grad_()
+    with pytest.raises(ValueError, match="no backward"):
+        attention(qb, k.bfloat16(), v.bfloat16(), causal=True, prefix=2)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

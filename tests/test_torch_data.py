@@ -213,6 +213,30 @@ def test_manifest_cache_crosses_packages(corpus, tmp_path):
     assert a.entries == b.entries == tds.entries[1::2][:2]
 
 
+def test_manifest_cache_is_never_found_half_written(corpus, monkeypatch):
+    """A writer stopped halfway through the manifest leaves nothing under
+    the cache's name (another rank would fail to parse it there), and the
+    next dataset builds and writes it whole."""
+    cache = os.path.join(corpus, "tokenized_byt5_96.json")
+    dump = json.dump
+
+    def stopped(obj, f):
+        f.write(json.dumps(obj)[:20])
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(tmls.json, "dump", stopped)
+    with pytest.raises(KeyboardInterrupt):
+        tmls.MLSDataset(corpus, ttok.ByT5Tokenizer(), 96, sample_rate=SR,
+                        tokenizer_name="byt5", strict_duration=False)
+    assert not os.path.exists(cache)
+    assert not [n for n in os.listdir(corpus) if n.endswith(".tmp")]
+    monkeypatch.setattr(tmls.json, "dump", dump)
+    ds = tmls.MLSDataset(corpus, ttok.ByT5Tokenizer(), 96, sample_rate=SR,
+                         tokenizer_name="byt5", strict_duration=False)
+    with open(cache) as f:
+        assert json.load(f) == ds.entries
+
+
 def test_strict_duration_and_labels(corpus):
     """The 10-20 s bound and clip(int(s) - 10, 0, 10), on a 24 kHz read of
     the same files (a 0.5 s clip is out of bounds, as in JAX)."""

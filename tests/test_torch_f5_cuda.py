@@ -132,4 +132,4 @@ def test_dittos_served_request_keeps_its_launches(dev):
     torch.cuda.synchronize()
     assert kernels.launches == {"attention": 1200, "conv1d": 90,
                                 "act_conv": 54, "snake": 55,
-                                "dit_glue": 3650}
+                                "dit_glue": 3650, "kv_decode": 0}
